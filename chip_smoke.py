@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds both hand kernels from this checkout's sources, holds each against
-its plain PyTorch version on the card, drives the port's main path
+its plain PyTorch version (the merge gain's on CPU copies of the card's
+operands, where it adds and takes log2 as the reference does; the pair
+cost's on the card), drives the port's main path
 (``repro_torch.core.summarize``) on the skitter stand-in at full size
 (V = 2,097,152, E = 11,095,298) with the default config, and compares card
 and CPU runs on a small graph. Phases, one line each:
 
   1. device: the card's name and power limit, CUDA, the kernels' build time;
   2. merge_gain (CUDA) against plain: test shapes, C=64/U=256 (shared-memory
-     opt-in), 512 groups of the real round-1 tables; argmax tie rules;
+     opt-in), every group of the real round-1 tables; the dense case's time;
+     argmax tie rules;
   3. pair_cost (Triton) against plain: E in {7, 1025, 5000} and the real
      pair table;
   4. the main path at full size: budget met, metrics finite, each kernel
@@ -19,7 +22,9 @@ and CPU runs on a small graph. Phases, one line each:
      once under torch.profiler, to show where its time goes;
   5. card against CPU on the golden fixture, with the same permutations.
 
-Then one JSON line of per-kernel numbers, and as the last line
+Kernel times are device times: a batch of launches back to back between
+one pair of CUDA events, over the count. Then one JSON line of per-kernel
+numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -64,8 +69,30 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def time_cuda(torch, fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+def time_cuda(torch, fn, launches: int = 20, batches: int = 5, warmup: int = 2) -> float:
+    """Milliseconds of device time a call of ``fn`` takes: ``launches`` calls
+    back to back between one pair of CUDA events, over the count; the median
+    of ``batches`` such runs. The host's launch cost overlaps the device's
+    work, as on the main path."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def time_single(torch, fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median milliseconds of one call of ``fn`` between two CUDA events on an
+    idle card: the host's launch cost falls inside the window."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -79,6 +106,26 @@ def time_cuda(torch, fn, reps: int = 20, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def profiled_ms(torch, fn, kernel: str, launches: int = 20):
+    """Mean device time, in ms, of the kernels whose name holds ``kernel``
+    over ``launches`` calls of ``fn`` under torch.profiler; None when the
+    profiler records no such kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and kernel in e.key]
+    except RuntimeError:
+        return None
+    count = sum(e.count for e in events)
+    return sum(e.self_device_time_total for e in events) / 1e3 / count if count else None
 
 
 def gain_operands(g, c, u, seed, dense):
@@ -136,6 +183,50 @@ def merge_gain_work(torch, gt) -> tuple[float, float]:
     return cross + rows + epilogue, float(2 * upper.sum())
 
 
+def dense_gain_operands(torch, gen, g, c, u, dev, scal):
+    """gain_operands' dense case (Poisson 2 counts), drawn on the card."""
+    def poisson(lam, shape):
+        return torch.poisson(torch.full(shape, lam, device=dev), generator=gen)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    m = poisson(2.0, (g, c, u))
+    n = ints(1, 40, (g, c)).float()
+    n[torch.rand((g, c), generator=gen, device=dev) < 0.2] = 0.0
+    s = poisson(0.3, (g, c))
+    n_u = ints(1, 40, (g, u)).float()
+    cidx = ints(0, u + 1, (g, c)).int()
+    w = poisson(0.2, (g, c, c))
+    w = torch.maximum(w, w.transpose(1, 2)).contiguous()
+    w.diagonal(dim1=1, dim2=2).zero_()
+    from repro_torch.kernels import ref
+    t = ref.pair_cost_ref(m, n[..., None] * n_u[:, None, :], scal[0], scal[1]).sum(-1) + 5.0
+    return m, n, s, t.contiguous(), n_u, cidx, w
+
+
+def plain_gain_cpu(ref, args, scal):
+    """``merge_gain_ref`` on CPU copies of the card's operands: the plain
+    version in the reference's own order of additions and log2, which the
+    port's tests hold to the JAX reference bit for bit."""
+    scal = scal.cpu()
+    return ref.merge_gain_ref(*(x.cpu() for x in args), scal[0], scal[1])
+
+
+def check_gain_shape(got) -> None:
+    """The diagonal of rel is -inf and red is symmetric, on the card."""
+    rel, red = got
+    if not bool(rel.diagonal(dim1=1, dim2=2).isneginf().all()):
+        raise AssertionError("diagonal of rel is not -inf")
+    red_t = red.transpose(1, 2)
+    if not bool(((red - red_t).abs() <= ATOL_RED + RTOL * red_t.abs()).all()):
+        raise AssertionError("red is not symmetric")
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 class Smoke:
     """Runs the phases, records which failed, and collects kernel numbers."""
 
@@ -173,6 +264,7 @@ def main() -> int:
         from repro_torch.graphs import generate
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.entropy_bits import pair_cost_triton
+        from repro_torch.kernels import merge_gain as merge_gain_lib
         from repro_torch.kernels.merge_gain import merge_gain_cuda
         from repro_torch.utils import f32math
     except ImportError as exc:
@@ -200,7 +292,7 @@ def main() -> int:
         for name, info in logs.items():
             log(f"nvcc {name}.cu: {info['seconds']:.1f} s (cached={info['cached']})")
             for line in info["ptxas"].splitlines():
-                if "ptxas info" in line and ("Used" in line or "spill" in line):
+                if ("ptxas info" in line and "Used" in line) or "spill" in line:
                     log("  " + line.strip())
         t0 = time.perf_counter()
         x = torch.ones(8, device=dev)
@@ -241,8 +333,14 @@ def main() -> int:
     # ---- 2. merge_gain kernel against plain --------------------------------
     def phase_merge_gain():
         errs = []
-        shapes = [(1, 4, 8), (3, 8, 16), (2, 16, 32), (5, 32, 64), (4, 64, 256)]
+        shapes = [(1, 4, 8), (3, 8, 16), (2, 16, 32), (5, 32, 64), (4, 64, 256),
+                  (2, 13, 100), (3, 7, 45)]
+        lib = merge_gain_lib._bind()
         for g, c, u in shapes:
+            if lib.merge_gain_smem_bytes(c, u) != merge_gain_lib.smem_bytes(c, u):
+                raise AssertionError(f"shared memory of (C={c}, U={u}): the CUDA source "
+                                     f"says {lib.merge_gain_smem_bytes(c, u)} B, the "
+                                     f"launcher {merge_gain_lib.smem_bytes(c, u)} B")
             for dense in (False, True):
                 m, n, s, n_u, cidx, w = gain_operands(g, c, u, g * 100 + u, dense)
                 args = [torch.as_tensor(a, device=dev) for a in (m, n, s)]
@@ -253,35 +351,49 @@ def main() -> int:
                                  torch.as_tensor(cidx, device=dev),
                                  torch.as_tensor(w, device=dev)]
                 got = merge_gain_cuda(*ops_in, scal)
-                want = ref.merge_gain_ref(*ops_in, scal[0], scal[1])
-                errs.append(gain_error(got, want))
-                rel = got[0].cpu().numpy()
-                if not np.all(np.isneginf(np.einsum("gcc->gc", rel))):
-                    raise AssertionError("diagonal of rel is not -inf")
-                red = got[1].cpu().numpy()
-                np.testing.assert_allclose(red, np.swapaxes(red, 1, 2), rtol=RTOL,
-                                           atol=ATOL_RED)
+                errs.append(gain_error(got, plain_gain_cpu(ref, ops_in, scal)))
+                check_gain_shape(got)
         log(f"merge_gain test shapes {shapes} x sparse/dense: max abs err {max(errs):.3g}")
 
+        # every group of the real round-1 tables, 512 groups at a time
         gt, scal = ctx["gt"], ctx["scal"]
         g_all, c, u = gt.m.shape
-        sel = torch.linspace(0, g_all - 1, 512, device=dev).long()
-        part = [x[sel].contiguous() for x in (gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w)]
-        err_real = gain_error(merge_gain_cuda(*part, scal),
-                              ref.merge_gain_ref(*part, scal[0], scal[1]))
-        log(f"merge_gain on 512 real groups: max abs err {err_real:.3g}")
         full = (gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w, scal)
+        got = merge_gain_cuda(*full)
+        check_gain_shape(got)
+        err_real = 0.0
+        t0 = time.perf_counter()
+        for lo in range(0, g_all, 512):
+            chunk = [x[lo:lo + 512] for x in full[:7]]
+            err_real = max(err_real, gain_error(
+                (got[0][lo:lo + 512], got[1][lo:lo + 512]),
+                plain_gain_cpu(ref, chunk, scal)))
+        cpu_s = time.perf_counter() - t0
+        valid = int(torch.isfinite(got[0]).sum())
+        del got
+        nz = gt.m != 0
+        row_nnz = nz.sum(-1)
+        full_words = int(nz.reshape(g_all, c, -1, 32).all(-1).sum()) if u % 32 == 0 else 0
+        log(f"merge_gain on all G={g_all} real groups against the plain version on "
+            f"the CPU ({cpu_s:.0f} s): max abs err {err_real:.3g}; "
+            f"{valid} valid entries; rows: at most {int(row_nnz.max())} nonzeros of "
+            f"U={u}, {int((row_nnz >= 64).sum())} rows with 64 or more, "
+            f"{full_words} full 32-column words")
+
+        sel = torch.linspace(0, g_all - 1, 512, device=dev).long()
+        part = [x[sel].contiguous() for x in full[:7]]
         ms_slice = time_cuda(torch, lambda: merge_gain_cuda(*part, scal))
         plain_slice = time_cuda(torch, lambda: ref.merge_gain_ref(*part, scal[0], scal[1]),
-                                reps=5, warmup=1)
+                                launches=1, batches=5, warmup=1)
         ms = time_cuda(torch, lambda: merge_gain_cuda(*full))
+        prof_ms = profiled_ms(torch, lambda: merge_gain_cuda(*full), "merge_gain_kernel")
 
         def plain_all():
             for lo in range(0, g_all, 512):
                 chunk = [x[lo:lo + 512] for x in full[:7]]
                 ref.merge_gain_ref(*chunk, scal[0], scal[1])
 
-        plain_ms = time_cuda(torch, plain_all, reps=3, warmup=1)
+        plain_ms = time_cuda(torch, plain_all, launches=1, batches=3, warmup=1)
         terms, ordered_pairs = merge_gain_work(torch, gt)
         bytes_moved = g_all * (c * u + 3 * c * c + 4 * c + u) * 4
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -289,18 +401,30 @@ def main() -> int:
             SFU_PER_SM_PER_CLK * NUM_SMS * ctx["sm_clock_hz"]) * 1e3
         t_flops = terms * FLOPS_PER_TERM / FP32_FLOPS * 1e3
         bound = max(t_bytes, t_sfu, t_flops)
-        log(f"merge_gain: kernel {ms:.3f} ms on all G={g_all} groups; "
-            f"512 groups: kernel {ms_slice:.3f} ms, plain {plain_slice:.3f} ms; "
-            f"plain on all G (512-group chunks) {plain_ms:.1f} ms; "
-            f"bound {bound:.4f} ms (bytes {t_bytes:.4f}, SFU {t_sfu:.4f}, "
-            f"fp32 {t_flops:.4f}; {terms:.6g} nonzero terms, {ordered_pairs:.6g} "
-            f"ordered live pairs; the kernel takes all U columns of each unordered "
-            f"pair: {g_all * c * (c - 1) / 2 * u:.6g} at most)")
+        log(f"merge_gain: kernel {ms:.4f} ms on all G={g_all} groups (batched launches; "
+            f"profiler {fmt_ms(prof_ms)} ms); 512 groups: kernel {ms_slice:.4f} ms, "
+            f"plain {plain_slice:.3f} ms; plain on all G (512-group chunks) "
+            f"{plain_ms:.1f} ms; bound {bound:.4f} ms (bytes {t_bytes:.4f}, SFU "
+            f"{t_sfu:.4f}, fp32 {t_flops:.4f}; {terms:.6g} nonzero terms, "
+            f"{ordered_pairs:.6g} ordered live pairs). The kernel walks only the "
+            f"nonzero columns of each live row and of each live pair's union; all U "
+            f"columns of each unordered pair would be {g_all * c * (c - 1) / 2 * u:.6g}")
+
+        # the dense case (most of the U columns nonzero) at the real shape
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dense = dense_gain_operands(torch, gen, g_all, c, u, dev, scal)
+        dense_ms = time_cuda(torch, lambda: merge_gain_cuda(*dense, scal))
+        chunk = [x[:512] for x in dense]
+        err_dense = gain_error(merge_gain_cuda(*chunk, scal),
+                               plain_gain_cpu(ref, chunk, scal))
+        log(f"merge_gain dense case (Poisson 2 counts, G={g_all} C={c} U={u}): kernel "
+            f"{dense_ms:.4f} ms; max abs err on its first 512 groups {err_dense:.3g}")
+        del dense, chunk
         smoke.kernels["merge_gain"] = dict(
             name="merge_gain", route="cuda",
             source="src/repro_torch/kernels/csrc/merge_gain.cu",
             replaces="src/repro/kernels/merge_gain.py:109",
-            max_abs_err=max(errs + [err_real]), ms=ms, plain_ms=plain_ms,
+            max_abs_err=max(errs + [err_real, err_dense]), ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by="bytes" if t_bytes >= max(t_sfu, t_flops)
             else "operations", library_ms=None)
 
@@ -342,7 +466,10 @@ def main() -> int:
                                    atol=ATOL_REL)
         errs.append(float((got - want).abs().max()))
         e = cnt.shape[0]
-        ms = time_cuda(torch, lambda: pair_cost_triton(cnt, pi, scal))
+        ms = time_cuda(torch, lambda: pair_cost_triton(cnt, pi, scal), launches=100)
+        single_ms = time_single(torch, lambda: pair_cost_triton(cnt, pi, scal))
+        prof_ms = profiled_ms(torch, lambda: pair_cost_triton(cnt, pi, scal),
+                              "_pair_cost_kernel", launches=100)
         plain_ms = time_cuda(torch, lambda: ref.pair_cost_ref(cnt, pi, scal[0], scal[1]))
         t_bytes = 12 * e / HBM_BYTES_PER_S * 1e3
         live = float((cnt > 0).sum())  # rows past the pair count need no term
@@ -350,7 +477,9 @@ def main() -> int:
         t_flops = FLOPS_PER_TERM * live / FP32_FLOPS * 1e3
         bound = max(t_bytes, t_sfu, t_flops)
         log(f"pair_cost E in (7, 1025, 5000) x f32/i32 and the real E={e}: max abs err "
-            f"{max(errs):.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{max(errs):.3g}; kernel {ms:.4f} ms (100 launches back to back; "
+            f"profiler {fmt_ms(prof_ms)} ms; one launch on an idle card, host launch "
+            f"cost included, {single_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
             f"{bound:.4f} ms (bytes {t_bytes:.4f}, SFU {t_sfu:.4f}, fp32 {t_flops:.4f})")
         smoke.kernels["pair_cost"] = dict(
             name="pair_cost", route="triton",

@@ -11,13 +11,16 @@ computes the same function with jnp (``repro/core/costs.py:239``,
 ``supernode_total_costs``).
 
 What bounds it on this card: one fused elementwise pass, 12 bytes moved per
-element (cnt and pi read, out written), no reuse and no reduction, so it is
-bound by memory bandwidth (12·E bytes over 3.35 TB/s). Triton's masked block
-loads give the same coalesced accesses as hand CUDA would. The ragged end of
-E is masked, so no padding copy is made (``pair_cost_pallas`` pads to a
-multiple of 1024). ``cbar`` and ``log2v`` are loaded from a device tensor,
-so passing them needs no host sync. log2 comes from libdevice and the
-division rounds as IEEE, to stay within the reference's tolerances.
+element (cnt and pi read, out written), no reuse and no reduction, so the
+bytes bound it (12·E bytes over 3.35 TB/s). Each element also takes two
+libdevice log2 and an IEEE division, about a hundred instructions, so its
+issue time is close to its memory time; the resident programs of an SM
+overlap the one's loads with the other's arithmetic. Every operation is
+float32, as in the plain version. The ragged end of E is masked, so no
+padding copy is made (``pair_cost_pallas`` pads to a multiple of 1024).
+``cbar`` and ``log2v`` are loaded from a device tensor, so passing them
+needs no host sync. log2 comes from libdevice and the division rounds as
+IEEE, to stay within the reference's tolerances.
 
 ``triton`` is imported, and the kernel compiled, inside :func:`pair_cost_triton`
 at its first call: this module imports on a machine without ``triton``.
@@ -43,14 +46,16 @@ def _pair_cost_kernel(cnt_ptr, pi_ptr, scal_ptr, out_ptr, e, BLOCK: tl.constexpr
     pi = tl.load(pi_ptr + offs, mask=live, other=0).to(tl.float32)
     cbar = tl.load(scal_ptr)
     log2v = tl.load(scal_ptr + 1)
+    # the plain version's clamp, 1e-38 rounded to float32: Triton types the
+    # bare literal, below float32's smallest normal, as float64, and would
+    # take the log2 terms in float64
+    tiny = tl.full([BLOCK], 1e-38, tl.float32)
     safe_pi = tl.maximum(pi, 1.0)
     sigma = tl.minimum(tl.maximum(tl.fdiv(cnt, safe_pi, ieee_rounding=True), 0.0),
                        1.0)
-    xlogx = tl.where(sigma > 0.0,
-                     sigma * libdevice.log2(tl.maximum(sigma, 1e-38)), 0.0)
+    xlogx = tl.where(sigma > 0.0, sigma * libdevice.log2(tl.maximum(sigma, tiny)), 0.0)
     one_m = 1.0 - sigma
-    ylogy = tl.where(sigma < 1.0,
-                     one_m * libdevice.log2(tl.maximum(one_m, 1e-38)), 0.0)
+    ylogy = tl.where(sigma < 1.0, one_m * libdevice.log2(tl.maximum(one_m, tiny)), 0.0)
     ent = tl.where((pi > 0.0) & (cnt > 0.0) & (cnt < pi),
                    -pi * (xlogx + ylogy), 0.0)
     c1 = cbar + ent

@@ -3,9 +3,16 @@
 Replaces ``repro/kernels/merge_gain.py::merge_gain_pallas`` (Pallas body
 ``_merge_gain_kernel``): for every candidate group, ``rel`` (Eq. 20) and
 ``red`` (Eq. 17) of every member pair. The source is
-``csrc/merge_gain.cu``; its header says what bounds the function on the
-card (the bytes of the group tables, against the special-function work of
-the nonzero entropy terms) and what the kernel's design does about it. It is built by
+``csrc/merge_gain.cu``. One thread block takes one group: it stages the
+group's tables in shared memory and builds an occupancy bitmap of each
+member's row. Its work units are the 32-column words of each member row and
+of each unordered pair ``i < j`` (the union of the two rows' bitmaps); it
+sorts the units by their set bits, and a thread sums the entropy terms of
+one unit's set bits only, ascending, before the word partials are added in
+order: the reference's order of additions, which the plain version takes
+on a CPU tensor (``f32math.sum_last``). The
+source's header says what bounds the function on the card and what the
+design does about it. It is built by
 :mod:`repro_torch.kernels.build` and bound with ctypes. The plain version is
 :func:`repro_torch.kernels.ref.merge_gain_ref`; callers go through
 :func:`repro_torch.kernels.ops.merge_gain`.
@@ -31,13 +38,39 @@ def _bind() -> ctypes.CDLL:
     lib = build.load("merge_gain")
     lib.merge_gain_launch.argtypes = [_vp] * 10 + [_int, _int, _int, _vp]
     lib.merge_gain_launch.restype = _int
+    lib.merge_gain_smem_bytes.argtypes = [_int, _int]
+    lib.merge_gain_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
 def smem_bytes(c: int, u: int) -> int:
-    """Shared memory of one block; mirrors ``merge_gain_smem_bytes`` in the
-    CUDA source, which the launcher uses."""
-    return (c * u + u + 4 * c) * 4 + c * 4
+    """Shared memory of one block; mirrors ``Layout`` in the CUDA source,
+    whose ``merge_gain_smem_bytes`` the launcher uses.
+
+    Regions of 4-byte words, each rounded up to 16 bytes: the m tile
+    ``[C, U]`` (rel and red, ``2 × [C, C + 1]``, take its place after the
+    sums, so it is the larger of the two), ``n_u [U]``, ``w [C, C + 1]``,
+    ``n``, ``s``, ``t``, ``tail`` and ``cidx [C]``, the bitmaps
+    ``[C, W]`` (``W = ceil(U / 32)``), the ``C(C-1)/2`` pairs' member ids,
+    and for the sort of the work units (an item, that is a row or a pair,
+    and one of its words; ``Wp``, ``W`` rounded up to a power of two, per
+    item) their keys and partial sums, their order in 16 bits, and a 64-bin
+    histogram.
+    """
+    words = (u + 31) // 32
+    wp = 1
+    while wp < words:
+        wp *= 2
+    pairs = c * (c - 1) // 2
+    units = (c + pairs) * wp
+    total = (max(_round4(c * u), 2 * _round4(c * (c + 1))) + _round4(u)
+             + _round4(c * (c + 1)) + 5 * _round4(c) + _round4(c * words)
+             + _round4(pairs) + _round4(units) + _round4((units + 1) // 2) + 64)
+    return total * 4
 
 
 def merge_gain_cuda(m, n, s, t, n_u, cidx, w, scal):
