@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds both hand kernels from this checkout's sources, holds each against
-its plain PyTorch version (the merge gain's on CPU copies of the card's
-operands, where it adds and takes log2 as the reference does; the pair
-cost's on the card), drives the port's main path
-(``repro_torch.core.summarize``) on the skitter stand-in at full size
-(V = 2,097,152, E = 11,095,298) with the default config, and compares card
-and CPU runs on a small graph. Phases, one line each:
+Builds the hand kernels from this checkout's sources, holds each against
+its plain PyTorch version (the merge gain's and the segment sum's on CPU
+copies of the card's operands, where they add as the reference does; the
+pair cost's on the card), drives the port's two paths on the skitter
+stand-in at full size (V = 2,097,152, E = 11,095,298) with the default
+config — summarization (``repro_torch.core.summarize``) and query serving
+from an edge-list file (``repro_torch.launch.query_serve``) — and compares
+card and CPU runs. Phases, one line each or a few:
 
   1. device: the card's name and power limit, CUDA, the kernels' build time;
   2. merge_gain (CUDA) against plain: test shapes, C=64/U=256 (shared-memory
@@ -20,7 +21,19 @@ and CPU runs on a small graph. Phases, one line each:
   4. the main path at full size: budget met, metrics finite, each kernel
      launched once per round; then one round replayed stage by stage, and
      once under torch.profiler, to show where its time goes;
-  5. card against CPU on the golden fixture, with the same permutations.
+  5. card against CPU on the golden fixture, with the same permutations;
+  6. edge-list input: the stand-in written as SNAP text with noise, read back
+     through ``load_graph`` (identical to ``generate``), then a cache hit;
+  7. query serving end to end: ``query_serve.main`` on that file, 4096
+     requests of all seven kinds in 64 slots; each kernel of the path
+     launched (the summarizer's once per round);
+  7b. queries, card against CPU: engines on phase 4's summary serve one
+     workload, the card's twice (equal digests), the answers agree at the
+     port's test tolerances, equal PageRank steps; the block summary's sizes;
+  7c. segment_sum (CUDA) against plain and numpy on test shapes and on the
+     block CSR of phase 7b, and its time;
+  7d. where a serving step's time goes: engine build, PageRank, triangles,
+     a 64-slot batch of each kind alone; eight steps under torch.profiler.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
@@ -32,10 +45,13 @@ phase fails. Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -43,6 +59,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
 SFU_PER_SM_PER_CLK = 16
 NUM_SMS = 132
 
@@ -56,6 +73,15 @@ FLOPS_PER_TERM = 24
 RTOL = 1e-5
 ATOL_RED = 1e-3
 ATOL_REL = 1e-4
+
+# The query tests' tolerances (tests/test_torch_queries.py), per kind:
+# (rtol, atol).
+QUERY_TOL = {"degree": (1e-12, 1e-15), "adjacency": (1e-12, 1e-15),
+             "pagerank": (1e-9, 1e-12), "triangle": (1e-9, 0.0), "khop": (0.0, 1e-9),
+             "cut": (0.0, 1e-9), "conductance": (0.0, 1e-9)}
+ALL_KINDS = "degree,adjacency,pagerank,triangle,khop,cut,conductance"
+SERVE_REQUESTS = 4096
+SERVE_SLOTS = 64
 
 
 def log(msg: str) -> None:
@@ -245,7 +271,8 @@ class Smoke:
             self.failed.append(name)
 
 
-def main() -> int:
+def run(tmp: str) -> int:
+    """The phases; ``tmp`` is a scratch directory for the edge-list file."""
     try:
         import torch
     except ImportError:
@@ -276,7 +303,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smoke = Smoke()
-    ctx: dict = {}
+    ctx: dict = {"tmp": tmp}
 
     # ---- 1. device + build -------------------------------------------------
     def phase_device():
@@ -505,6 +532,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        ctx["res"] = res
         for k in ("merge_gain", "pair_cost"):
             if k in smoke.kernels:
                 smoke.kernels[k]["launches"] = counts[k]
@@ -522,7 +550,8 @@ def main() -> int:
         for k in ("size_bits", "re1", "re2", "mdl_cost"):
             if not np.isfinite(getattr(res, k)):
                 raise AssertionError(f"{k} is not finite")
-        if counts != {"merge_gain": res.iterations_run, "pair_cost": res.iterations_run}:
+        if counts != {"merge_gain": res.iterations_run, "pair_cost": res.iterations_run,
+                      "segment_sum": 0}:
             raise AssertionError(f"launch counts {counts} != one per round "
                                  f"({res.iterations_run} rounds)")
 
@@ -642,18 +671,319 @@ def main() -> int:
 
     smoke.phase("5 card vs CPU", phase_card_vs_cpu)
 
+    # ---- 6. edge-list input -------------------------------------------------
+    def phase_edge_list():
+        from repro_torch.graphs import load_graph, write_edge_list
+        src, dst, v = ctx["src"], ctx["dst"], ctx["v"]
+        path = os.path.join(ctx["tmp"], "skitter.txt")
+        t0 = time.perf_counter()
+        write_edge_list(path, src, dst, v, shuffle=True, dup_frac=0.01, self_loops=100,
+                        header=True)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g = load_graph(path)
+        ingest_s = time.perf_counter() - t0
+        st = g.stats
+        log(f"edge list: {os.path.getsize(path)} bytes, {st.lines_parsed} lines, written in "
+            f"{write_s:.1f} s; ingest {ingest_s:.1f} s (source={g.source}, {st.chunks} chunks, "
+            f"{st.spill_runs} runs, {st.duplicates_dropped} duplicates and "
+            f"{st.self_loops_dropped} self-loops dropped, relabeled={st.relabeled})")
+        for name, got in (("ingest", g), ("cache hit", None)):
+            if got is None:
+                t0 = time.perf_counter()
+                got = load_graph(path)
+                hit_s = time.perf_counter() - t0
+                if got.source != "cache" or got.stats.bytes_parsed != 0:
+                    raise AssertionError(f"second load: source={got.source}, "
+                                         f"{got.stats.bytes_parsed} bytes parsed")
+                log(f"cache hit: {hit_s:.3f} s, 0 bytes parsed")
+            if not (got.num_nodes == v and np.array_equal(np.asarray(got.src), src)
+                    and np.array_equal(np.asarray(got.dst), dst)):
+                raise AssertionError(f"{name}: the graph read back is not generate()'s "
+                                     f"(V {got.num_nodes} vs {v}, E {got.num_edges} vs "
+                                     f"{len(src)})")
+        log("read back: identical to generate('skitter', seed=0, scale=1.0)")
+        ctx["edge_list"] = path
+
+    smoke.phase("6 edge-list input", phase_edge_list)
+
+    # ---- 7. query serving, end to end ----------------------------------------
+    def phase_serve():
+        from repro_torch.launch import query_serve
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = query_serve.main(["--edge-list", ctx["edge_list"], "--T", "20", "--k-frac", "0.3",
+                                "--requests", str(SERVE_REQUESTS), "--batch", str(SERVE_SLOTS),
+                                "--queries", ALL_KINDS, "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ctx["serve_counts"] = counts
+        log(f"served: {out['requests']} requests {out['queries']} in {SERVE_SLOTS} slots, "
+            f"p50 {out['p50_latency_s'] * 1e3:.2f} ms, p99 {out['p99_latency_s'] * 1e3:.2f} ms, "
+            f"QPS {out['qps']:.1f}; summarize {out['summarize_wall_s']:.2f} s "
+            f"({out['iterations']} rounds), engine build {out['engine_build_wall_s']:.3f} s, "
+            f"load {out['load_wall_s']:.3f} s (source={out['source']}); blocks {out['blocks']}, "
+            f"PageRank steps {out['pagerank_iterations']}, wedges {out['triangle_wedges']}; "
+            f"digest {out['answers_digest']}; launches {counts}")
+        if out["requests"] != SERVE_REQUESTS or set(out["queries"]) != set(ALL_KINDS.split(",")):
+            raise AssertionError(f"served {out['requests']} requests of {out['queries']}")
+        rounds = out["iterations"]
+        if counts["merge_gain"] != rounds or counts["pair_cost"] != rounds:
+            raise AssertionError(f"launch counts {counts} != one per round ({rounds} rounds)")
+        if counts["segment_sum"] == 0:
+            raise AssertionError("the query path never launched segment_sum")
+
+    smoke.phase("7 query serving", phase_serve)
+
+    # ---- 7b. queries, card against CPU ---------------------------------------
+    def phase_queries_card_vs_cpu():
+        from repro_torch.core.query_engine import KIND_NAMES, QueryEngine
+        from repro_torch.launch.query_serve import (QueryServer, answers_digest,
+                                                    random_workload, serve)
+        res, v = ctx["res"], ctx["v"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        card = QueryEngine(res, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() - base
+        bs = card.bs
+        resident = sum(x.numel() * x.element_size() for x in (
+            bs.ids, bs.node2block, bs.sizes, bs.indptr, bs.cols, bs.sigma, bs.deg_w, bs.deg,
+            bs.rows, bs.key))
+        t0 = time.perf_counter()
+        cpu = QueryEngine(dataclasses.replace(res), device="cpu")
+        cpu_build_s = time.perf_counter() - t0
+        kinds = [KIND_NAMES[k] for k in ALL_KINDS.split(",")]
+        t0 = time.perf_counter()
+        reqs = random_workload(np.random.default_rng(0), v, SERVE_REQUESTS, kinds)
+        draw_s = time.perf_counter() - t0
+
+        def run(engine):
+            server = QueryServer(engine, slots=SERVE_SLOTS)
+            torch.cuda.reset_peak_memory_stats()
+            wall = serve(server, [dataclasses.replace(r) for r in reqs])
+            return ({r.rid: r.answer for r in server.done}, answers_digest(server.done), wall,
+                    torch.cuda.max_memory_allocated())
+
+        a1, d1, w1, serve_peak = run(card)
+        card2 = QueryEngine(dataclasses.replace(res), device="cuda")  # built anew
+        a2, d2, w2, _ = run(card2)
+        a3, d3, w3, _ = run(cpu)
+        tri = card.triangle_density()
+        log(f"block summary: S={bs.num_blocks} nnz={bs.nnz} D={bs.max_row_nnz()} "
+            f"rows with entries {int((bs.indptr[1:] > bs.indptr[:-1]).sum())}; "
+            f"wedges {card.triangle_wedges}, triangle total {tri!r}; PageRank steps card "
+            f"{card.pagerank_iterations}, {card2.pagerank_iterations}, CPU "
+            f"{cpu.pagerank_iterations}")
+        log(f"engine build: card {build_s:.3f} s, peak {build_peak / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB already held, block summary resident "
+            f"{resident / 2**20:.1f} MiB; CPU {cpu_build_s:.3f} s; workload drawn in "
+            f"{draw_s:.1f} s; serve {SERVE_REQUESTS} requests: card {w1:.2f} s and {w2:.2f} s "
+            f"(peak memory while serving {serve_peak / 2**30:.2f} GiB), CPU {w3:.2f} s")
+        worst = {}
+        kind_of = {r.rid: k for r in reqs for k, n in KIND_NAMES.items() if n == r.kind}
+        for rid, got in a1.items():
+            want = a3[rid]
+            rtol, atol = QUERY_TOL[kind_of[rid]]
+            if not np.isfinite(got):
+                raise AssertionError(f"request {rid} ({kind_of[rid]}): answer {got}")
+            diff = abs(got - want)
+            w = worst.setdefault(kind_of[rid], [0.0, 0])
+            w[0] = max(w[0], diff)
+            w[1] += diff > atol + rtol * abs(want)
+        log("card against CPU, max abs difference per kind: " + ", ".join(
+            f"{k} {w[0]:.3g}" for k, w in sorted(worst.items())))
+        log(f"digests: card {d1}, card again {d2}, CPU {d3}; card == CPU: {d1 == d3}")
+        if d1 != d2:
+            raise AssertionError("two card runs of one workload gave different answers")
+        bad = {k: w[1] for k, w in worst.items() if w[1]}
+        if bad:
+            raise AssertionError(f"answers outside the tolerances, per kind: {bad}")
+        if not card.pagerank_iterations == card2.pagerank_iterations == cpu.pagerank_iterations:
+            raise AssertionError("PageRank took different numbers of steps")
+        ctx["bs_card"], ctx["pr_card"], ctx["reqs"] = bs, card.pagerank_blocks(), reqs
+
+    smoke.phase("7b queries card vs CPU", phase_queries_card_vs_cpu)
+
+    # ---- 7c. segment_sum kernel against plain ------------------------------
+    def phase_segment_sum():
+        from repro_torch.kernels.segment_sum import segment_sum_cuda
+
+        def check(indptr, vals):
+            """The kernel against the plain version on CPU copies and against
+            np.add.at, to the last bit; returns the kernel's result."""
+            got = segment_sum_cuda(indptr, vals)
+            plain = ref.segment_sum_ref(indptr.cpu(), vals.cpu())
+            ip = indptr.cpu().numpy()
+            want = np.zeros(ip.size - 1)
+            np.add.at(want, np.repeat(np.arange(ip.size - 1), np.diff(ip)),
+                      vals.cpu().numpy()[:ip[-1]])
+            got_h = got.cpu().numpy()
+            if not (np.array_equal(got_h, plain.numpy()) and np.array_equal(got_h, want)):
+                raise AssertionError(f"segment_sum differs: max abs err "
+                                     f"{np.abs(got_h - want).max()}")
+            return got
+
+        rng = np.random.default_rng(0)
+        hubs = rng.poisson(0.45, 200_000)
+        hubs[rng.integers(0, hubs.size, 30)] = 2500
+        shapes = [[0, 3, 0, 0, 5, 1], [1] * 50, [0] * 7, [4000, 0, 2, 3000], hubs.tolist()]
+        for lengths in shapes:
+            n = int(np.sum(lengths))
+            vals = rng.standard_normal(n) * np.exp(rng.standard_normal(n) * 8)
+            indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+            check(torch.as_tensor(indptr, device=dev), torch.as_tensor(vals, device=dev))
+        bs, pr = ctx["bs_card"], ctx["pr_card"]
+        share = torch.where(bs.deg > 0, pr / torch.clamp(bs.deg, min=1e-300), 0.0)
+        step = (bs.deg_w * share[bs.cols]).contiguous()  # a PageRank step's products
+        got = check(bs.indptr, step)
+        if not torch.equal(check(bs.indptr, bs.deg_w), bs.deg):
+            raise AssertionError("segment_sum of deg_w is not the block summary's deg")
+        if not torch.equal(segment_sum_cuda(bs.indptr, step), got):
+            raise AssertionError("two launches on one input differ")
+        # whether a PyTorch call gives these row sums (np.add.at's order, the
+        # same on every run): each taken twice on the card
+        want = got.cpu().numpy()
+        rows = torch.repeat_interleave(torch.arange(bs.num_blocks, device=dev),
+                                       bs.indptr[1:] - bs.indptr[:-1])
+        calls = {
+            "index_add_": lambda: torch.zeros_like(got).index_add_(0, rows, step),
+            "scatter_add_": lambda: torch.zeros_like(got).scatter_add_(0, rows, step),
+            "segment_reduce": lambda: torch.segment_reduce(step, "sum", offsets=bs.indptr)}
+        verdicts = []
+        for name, call in calls.items():
+            a, b = call().cpu().numpy(), call().cpu().numpy()
+            verdicts.append(f"{name}: runs equal {np.array_equal(a, b)}, np.add.at's "
+                            f"{np.array_equal(a, want) and np.array_equal(b, want)}, max abs "
+                            f"diff {np.abs(a - want).max():.3g}")
+        x = step.repeat(SERVE_SLOTS).reshape(SERVE_SLOTS, -1) * 1e3
+        whole = x.sum(-1)
+        rowwise = torch.stack([x[i:i + 1].sum(-1)[0] for i in range(SERVE_SLOTS)])
+        verdicts.append(f"torch.sum of a [64, nnz] tensor's rows equal to each row's own "
+                        f"sum: {torch.equal(whole, rowwise)} (max diff "
+                        f"{(whole - rowwise).abs().max().item():.3g})")
+        log("PyTorch calls on the PageRank step's row sums: " + "; ".join(verdicts))
+        # an ordered sum's first pass over a 64-slot batch of CSR-entry terms
+        terms = step.repeat(SERVE_SLOTS)
+        nnz = bs.nnz
+        starts = (torch.arange(SERVE_SLOTS, device=dev)[:, None] * nnz
+                  + torch.arange(0, nnz, 1024, device=dev)[None, :]).reshape(-1)
+        check(torch.cat([starts, torch.tensor([terms.numel()], device=dev)]), terms)
+        s = bs.num_blocks
+        ms = time_cuda(torch, lambda: segment_sum_cuda(bs.indptr, step), launches=100)
+        prof_ms = profiled_ms(torch, lambda: segment_sum_cuda(bs.indptr, step),
+                              "segment_sum_kernel", launches=100)
+        plain_ms = time_cuda(torch, lambda: ref.segment_sum_ref(bs.indptr, step))
+        library_ms = time_cuda(torch, lambda: torch.segment_reduce(step, "sum",
+                                                                   offsets=bs.indptr),
+                               launches=100)
+        t_bytes = (8 * (s + 1) + 8 * nnz + 8 * s) / HBM_BYTES_PER_S * 1e3
+        t_ops = nnz / FP64_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"segment_sum on test shapes and the block CSR (S={s} segments, nnz={nnz} "
+            f"values; deg, a PageRank step; 64 x nnz in 1024-value segments): equal to the "
+            f"plain version and to np.add.at bit for bit, and run to run; kernel {ms:.4f} ms "
+            f"(100 launches back to back; profiler {fmt_ms(prof_ms)} ms), plain on the card "
+            f"{plain_ms:.4f} ms, torch.segment_reduce {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes {t_bytes:.4f}, fp64 {t_ops:.6f})")
+        smoke.kernels["segment_sum"] = dict(
+            name="segment_sum", route="cuda",
+            source="src/repro_torch/kernels/csrc/segment_sum.cu",
+            replaces="src/repro/core/queries_jax.py:181",
+            launches=ctx["serve_counts"]["segment_sum"], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+
+    smoke.phase("7c segment_sum", phase_segment_sum)
+
+    # ---- 7d. where a serving step's time goes --------------------------------
+    def phase_query_breakdown():
+        from repro_torch.core.query_engine import KIND_NAMES, SET_KINDS, QueryEngine, \
+            pack_set_counts
+        from repro_torch.launch.query_serve import QueryServer, serve
+        reqs = ctx.pop("reqs")
+
+        def timed(fn, reps=3):
+            """Median host seconds of ``fn`` between two synchronizes, and its value."""
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return float(np.median(times)), out
+
+        res = dataclasses.replace(ctx["res"])
+        build_s, eng = timed(lambda: QueryEngine(dataclasses.replace(res), device="cuda"), 1)
+        pr_s, _ = timed(eng.pagerank_blocks, 1)
+        tri_s, _ = timed(eng.triangle_density, 1)
+        parts = [f"engine build {build_s * 1e3:.1f} ms, PageRank ({eng.pagerank_iterations} "
+                 f"steps) {pr_s * 1e3:.1f} ms, triangles ({eng.triangle_wedges} wedges) "
+                 f"{tri_s * 1e3:.1f} ms"]
+        for name, k in KIND_NAMES.items():
+            batch = [r for r in reqs if r.kind == k][:SERVE_SLOTS]
+            kinds = np.full(len(batch), k, np.int32)
+            u = np.array([r.u for r in batch])
+            v = np.array([r.v for r in batch])
+            counts = (None, None, None)
+            pack = ""
+            if k in SET_KINDS:
+                pack_s, counts = timed(lambda: pack_set_counts(
+                    eng.bs, kinds, [r.a for r in batch], [r.b for r in batch]))
+                pack = f" + packing {pack_s * 1e3:.2f} ms"
+            ans_s, _ = timed(lambda: eng.answer_batch(kinds, u, v, *counts))
+            parts.append(f"{name} {ans_s * 1e3:.2f} ms{pack}")
+        log(f"a {SERVE_SLOTS}-slot batch of one kind, host wall between synchronizes: "
+            + ", ".join(parts))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        server = QueryServer(eng, slots=SERVE_SLOTS)
+        steps = 8
+        chunk = [dataclasses.replace(r) for r in reqs[:steps * SERVE_SLOTS]]
+        try:  # a measurement aid: if the profiler fails, say so and go on
+            with torch.profiler.profile(activities=acts) as prof:
+                wall = serve(server, chunk)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        except RuntimeError as exc:
+            log(f"profiled serving: device time not measured (profiler failed: {exc})")
+            return
+        busy = sum(e.self_device_time_total for e in events) / 1e6
+        if busy <= 0:
+            log(f"profiled serving: wall {wall:.3f} s; device time not measured")
+            return
+        log(f"profiled serving, {steps} steps of {SERVE_SLOTS} mixed requests: wall "
+            f"{wall * 1e3:.1f} ms (profiler on), device busy {busy * 1e3:.1f} ms "
+            f"({100 * busy / wall:.0f}%), idle share {100 * (1 - busy / wall):.0f}%")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    smoke.phase("7d query breakdown", phase_query_breakdown)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
-    for k in ("merge_gain", "pair_cost"):
+    names = ("merge_gain", "pair_cost", "segment_sum")
+    for k in names:
         if "launches" not in smoke.kernels.get(k, {}):
             log(f"chip_smoke: no numbers for {k}")
             return 1
-    log(json.dumps({"kernels": [smoke.kernels["merge_gain"], smoke.kernels["pair_cost"]]}))
+    log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

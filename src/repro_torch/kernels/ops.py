@@ -1,11 +1,12 @@
-"""The one seam for every merge-gain and pair-cost call of the port.
+"""The one seam for every hand-kernel call of the port.
 
 Port of ``repro/kernels/ops.py``. The implementation follows the tensors'
 device and ``SummaryConfig.kernel_backend``:
 
   * ``None``     — the hand kernel for CUDA tensors
     (:func:`~repro_torch.kernels.merge_gain.merge_gain_cuda`,
-    :func:`~repro_torch.kernels.entropy_bits.pair_cost_triton`), the plain
+    :func:`~repro_torch.kernels.entropy_bits.pair_cost_triton`,
+    :func:`~repro_torch.kernels.segment_sum.segment_sum_cuda`), the plain
     version (:mod:`repro_torch.kernels.ref`) for CPU tensors;
   * ``"ref"``    — the plain version on either device;
   * ``"kernel"`` — the hand kernel; CPU tensors raise.
@@ -21,6 +22,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.entropy_bits import pair_cost_triton
 from repro_torch.kernels.merge_gain import merge_gain_cuda
+from repro_torch.kernels.segment_sum import segment_sum_cuda
 
 
 def _use_kernel(x: torch.Tensor, backend: str | None) -> bool:
@@ -54,12 +56,23 @@ def pair_cost(cnt, pi, scal, *, backend: str | None = None):
     return ref.pair_cost_ref(cnt, pi, scal[0], scal[1])
 
 
+def segment_sum(indptr, vals, *, backend: str | None = None):
+    """Per-segment sums in storage order, float64[len(indptr) - 1]: the query
+    engine's row reduction over the block CSR."""
+    if _use_kernel(vals, backend):
+        return segment_sum_cuda(indptr, vals)
+    return ref.segment_sum_ref(indptr, vals)
+
+
+_KERNELS = {"merge_gain": merge_gain_cuda, "pair_cost": pair_cost_triton,
+            "segment_sum": segment_sum_cuda}
+
+
 def launch_counts() -> dict[str, int]:
     """How often each hand kernel has launched in this process."""
-    return {"merge_gain": merge_gain_cuda.launches,
-            "pair_cost": pair_cost_triton.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    merge_gain_cuda.launches = 0
-    pair_cost_triton.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the two hand kernels.
+"""Plain PyTorch versions of the hand kernels.
 
 Port of ``repro/kernels/ref.py`` (``entropy_bits_ref``, ``pair_cost_ref``,
-``merge_gain_ref``), operation for operation in the reference's order. They
-are what a CPU tensor runs (:mod:`repro_torch.kernels.ops`) and what the
-CUDA and Triton kernels are held against on the card.
+``merge_gain_ref``), operation for operation in the reference's order, and
+``segment_sum_ref``, the query engine's row reduction. They are what a CPU
+tensor runs (:mod:`repro_torch.kernels.ops`) and what the CUDA and Triton
+kernels are held against on the card.
 
 On a CPU tensor, ``log2`` and the sums over U are taken as the reference's
 XLA:CPU takes them (:mod:`repro_torch.utils.f32math`), so the gains agree
@@ -102,3 +103,15 @@ def merge_gain_ref(
                       torch.full((), float("-inf"), device=m.device))
     red = torch.where(valid, red, torch.zeros((), device=m.device))
     return rel, red
+
+
+def segment_sum_ref(indptr: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[r] = Σ vals[indptr[r]:indptr[r+1]]``, float64, added in storage
+    order from zero on a CPU tensor (``index_add_`` there walks its indices in
+    order, as ``np.add.at`` does); on a card's tensor ``index_add_`` adds with
+    atomics, in no fixed order."""
+    n_seg = indptr.numel() - 1
+    lengths = indptr[1:] - indptr[:-1]
+    seg = torch.repeat_interleave(torch.arange(n_seg, device=vals.device), lengths)
+    out = torch.zeros(n_seg, dtype=torch.float64, device=vals.device)
+    return out.index_add_(0, seg, vals[:seg.numel()].to(torch.float64))

@@ -1,8 +1,10 @@
 """The port stands alone and stays on the device it was asked for: no module
-of ``repro_torch`` imports JAX or the reference package, entry points without
-an explicit ``device="cpu"`` refuse to run on a machine without CUDA, and the
-kernel seam takes the plain versions for CPU tensors only."""
+of ``repro_torch`` imports JAX or the reference package, nor does
+``chip_smoke.py``; entry points without an explicit ``device="cpu"`` refuse
+to run on a machine without CUDA, and the kernel seam takes the plain
+versions for CPU tensors only."""
 
+import ast
 import json
 import os
 import pathlib
@@ -16,7 +18,8 @@ import torch
 from repro_torch.core import SummaryConfig, summarize
 from repro_torch.kernels import ops, ref
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -40,8 +43,25 @@ def test_no_module_imports_jax_or_the_reference():
     assert res["bad"] == []
     for m in ("repro_torch.core.engine", "repro_torch.kernels.merge_gain",
               "repro_torch.kernels.entropy_bits", "repro_torch.launch.summarize",
-              "repro_torch.core.convert", "repro_torch.graphs.synthetic"):
+              "repro_torch.core.convert", "repro_torch.graphs.synthetic",
+              "repro_torch.graphs.io", "repro_torch.core.queries",
+              "repro_torch.core.query_engine", "repro_torch.launch.query_serve",
+              "repro_torch.kernels.segment_sum"):
         assert m in res["modules"]
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_reference():
+    """Every import statement of ``chip_smoke.py``, at any depth."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "repro_torch.core" in names and "torch" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
 
 
 def _no_cuda():
@@ -64,6 +84,14 @@ def test_launcher_without_device_refuses_the_cpu():
         launch.main(["--dataset", "ego-facebook", "--scale", "0.02", "--T", "2"])
 
 
+def test_query_server_without_device_refuses_the_cpu():
+    _no_cuda()
+    from repro_torch.launch import query_serve
+
+    with pytest.raises(RuntimeError, match="device"):
+        query_serve.main(["--dataset", "ego-facebook", "--scale", "0.02", "--T", "2"])
+
+
 def test_launcher_on_the_cpu_prints_the_reference_keys(capsys):
     from repro_torch.launch import summarize as launch
 
@@ -76,7 +104,7 @@ def test_launcher_on_the_cpu_prints_the_reference_keys(capsys):
               "wall_s", "device", "kernel_launches"):
         assert k in res, k
     assert res["device"] == "cpu" and res["mode"] == "local"
-    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0}
+    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "segment_sum": 0}
     assert res["relative_size"] <= 0.3 * (1 + 1e-6)
 
 
