@@ -30,8 +30,11 @@ card and CPU runs. Phases, one line each or a few:
   7b. queries, card against CPU: engines on phase 4's summary serve one
      workload, the card's twice (equal digests), the answers agree at the
      port's test tolerances, equal PageRank steps; the block summary's sizes;
-  7c. segment_sum (CUDA) against plain and numpy on test shapes and on the
-     block CSR of phase 7b, and its time;
+  7c. the fixed-order sums (CUDA): segment_sum against plain and numpy on
+     test shapes, rows around the warp threshold and the block CSR of phase
+     7b; ordered_sum against plain on empty and ragged rows and the query
+     path's five shapes; each timed beside a PyTorch call, with the card's
+     dependent float64 add latency and each shape's two-term bound;
   7d. where a serving step's time goes: engine build, PageRank, triangles,
      a 64-slot batch of each kind alone; eight steps under torch.profiler.
 
@@ -134,10 +137,15 @@ def time_single(torch, fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(torch, fn, kernel: str, launches: int = 20):
-    """Mean device time, in ms, of the kernels whose name holds ``kernel``
-    over ``launches`` calls of ``fn`` under torch.profiler; None when the
-    profiler records no such kernel."""
+def profiled_ms(torch, fn, kernel: str | None = None, launches: int = 20):
+    """Device time, in ms, of one call of ``fn`` under torch.profiler over
+    ``launches`` calls: for each kernel (or memset) name that holds
+    ``kernel`` (every name when it is None), the mean time of its recorded
+    events times how often a call runs it; None when the profiler records no
+    such kernel. Means per recorded event, because in a long process the
+    profiler has kept fewer records of a ctypes-launched kernel than it ran.
+    For a call whose host cost exceeds its device time, back-to-back CUDA
+    events would time the host."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
@@ -146,12 +154,67 @@ def profiled_ms(torch, fn, kernel: str, launches: int = 20):
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and kernel in e.key]
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                  and e.count and (kernel is None or kernel in e.key)]
     except RuntimeError:
         return None
-    count = sum(e.count for e in events)
-    return sum(e.self_device_time_total for e in events) / 1e3 / count if count else None
+    total = sum(e.self_device_time_total / e.count * max(1, round(e.count / launches))
+                for e in events)
+    return total / 1e3 if total > 0 else None
+
+
+DADD_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void chain(const double* y, double* out, long long* cycles, int reps) {
+  double acc = y[1];
+  const double d = y[0];
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4096; ++i) acc = __dadd_rn(acc, d);
+  }
+  cycles[0] = clock64() - t0;
+  out[0] = acc;
+}
+extern "C" int chain_launch(const void* y, void* out, void* cycles, int reps, void* stream) {
+  chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(y), static_cast<double*>(out),
+      static_cast<long long*>(cycles), reps);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def dadd_latency_ns(torch, build, tmp: str) -> float:
+    """Nanoseconds a dependent float64 add takes on the card: one thread adds
+    256 chains of 4096 ``__dadd_rn`` back to back, timed by CUDA events (the
+    launch is 1/1M of it); the cycle count of ``clock64()`` is logged beside."""
+    import ctypes
+    src = os.path.join(tmp, "dadd_probe.cu")
+    lib_path = os.path.join(tmp, "libdadd_probe.so")
+    with open(src, "w") as f:
+        f.write(DADD_PROBE)
+    out = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path, src],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the DADD probe:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.chain_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    y = torch.tensor([1e-3, 1.0], dtype=torch.float64, device="cuda")
+    acc = torch.zeros(1, dtype=torch.float64, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    reps = 256
+
+    def launch():
+        err = lib.chain_launch(y.data_ptr(), acc.data_ptr(), cycles.data_ptr(), reps,
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"DADD probe launch failed: CUDA error {err}")
+
+    ms = time_cuda(torch, launch, launches=1, batches=3, warmup=1)
+    log(f"DADD probe: {int(cycles.item()) / (4096 * reps):.3f} cycles an add by clock64(), "
+        f"sum {acc.item()!r}")
+    return ms * 1e6 / (4096 * reps)
 
 
 def gain_operands(g, c, u, seed, dense):
@@ -551,7 +614,7 @@ def run(tmp: str) -> int:
             if not np.isfinite(getattr(res, k)):
                 raise AssertionError(f"{k} is not finite")
         if counts != {"merge_gain": res.iterations_run, "pair_cost": res.iterations_run,
-                      "segment_sum": 0}:
+                      "segment_sum": 0, "ordered_sum": 0}:
             raise AssertionError(f"launch counts {counts} != one per round "
                                  f"({res.iterations_run} rounds)")
 
@@ -730,8 +793,9 @@ def run(tmp: str) -> int:
         rounds = out["iterations"]
         if counts["merge_gain"] != rounds or counts["pair_cost"] != rounds:
             raise AssertionError(f"launch counts {counts} != one per round ({rounds} rounds)")
-        if counts["segment_sum"] == 0:
-            raise AssertionError("the query path never launched segment_sum")
+        for k in ("segment_sum", "ordered_sum"):
+            if counts[k] == 0:
+                raise AssertionError(f"the query path never launched {k}")
 
     smoke.phase("7 query serving", phase_serve)
 
@@ -808,14 +872,36 @@ def run(tmp: str) -> int:
 
     smoke.phase("7b queries card vs CPU", phase_queries_card_vs_cpu)
 
-    # ---- 7c. segment_sum kernel against plain ------------------------------
+    # ---- 7c. the fixed-order sum kernels against plain ---------------------
     def phase_segment_sum():
-        from repro_torch.kernels.segment_sum import segment_sum_cuda
+        from repro_torch.core.queries import SUM_SEGMENT
+        from repro_torch.kernels.segment_sum import (LONG_ROW, long_rows, ordered_sum_cuda,
+                                                     segment_sum_cuda)
 
-        def check(indptr, vals):
-            """The kernel against the plain version on CPU copies and against
-            np.add.at, to the last bit; returns the kernel's result."""
-            got = segment_sum_cuda(indptr, vals)
+        dadd_ns = dadd_latency_ns(torch, build, ctx["tmp"])
+        log(f"dependent float64 add latency: {dadd_ns:.3f} ns (one thread, a chain of 4096 "
+            f"__dadd_rn; {dadd_ns * ctx['sm_clock_hz'] / 1e9:.2f} cycles at the max SM clock)")
+        timed_rows = {}  # shape -> dict of its times and bounds, ms
+
+        def timings(name, call, library, nbytes, chain):
+            """Device time of the kernel and of the library call (profiler; the
+            back-to-back time of the kernel's calls beside, which a launch's host
+            cost bounds below), and the two-term bound: bytes at the HBM rate,
+            and the longest chain of dependent adds at the measured latency."""
+            back = time_cuda(torch, call, launches=100)
+            ms = profiled_ms(torch, call, launches=50)
+            lib = profiled_ms(torch, library, launches=50)
+            timed_rows[name] = dict(
+                ms=back if ms is None else ms, back=back, profiled=ms is not None,
+                lib=time_cuda(torch, library, launches=100) if lib is None else lib,
+                bytes=nbytes / HBM_BYTES_PER_S * 1e3, chain=chain * dadd_ns * 1e-6)
+
+        def check(indptr, vals, tag, timed=True):
+            """The CSR kernel against the plain version on CPU copies and against
+            np.add.at, to the last bit; times it beside torch.segment_reduce;
+            returns the kernel's result."""
+            long = long_rows(indptr)
+            got = segment_sum_cuda(indptr, vals, long)
             plain = ref.segment_sum_ref(indptr.cpu(), vals.cpu())
             ip = indptr.cpu().numpy()
             want = np.zeros(ip.size - 1)
@@ -823,26 +909,57 @@ def run(tmp: str) -> int:
                       vals.cpu().numpy()[:ip[-1]])
             got_h = got.cpu().numpy()
             if not (np.array_equal(got_h, plain.numpy()) and np.array_equal(got_h, want)):
-                raise AssertionError(f"segment_sum differs: max abs err "
+                raise AssertionError(f"segment_sum {tag} differs: max abs err "
                                      f"{np.abs(got_h - want).max()}")
+            if not torch.equal(segment_sum_cuda(indptr, vals), got):
+                raise AssertionError(f"segment_sum {tag}: the list computed in the wrapper "
+                                     "gives other bits")
+            if timed:
+                s_, n_ = ip.size - 1, int(ip[-1])
+                widest = int(np.diff(ip).max(initial=0))
+                timings(f"csr {tag}", lambda: segment_sum_cuda(indptr, vals, long),
+                        lambda: torch.segment_reduce(vals, "sum", offsets=indptr),
+                        8 * (s_ + 1) + 8 * n_ + 8 * s_ + 8 * long.numel(), widest)
+            return got
+
+        def check_ordered(x, tag, timed=True):
+            """ordered_sum against its plain version on a CPU copy, to the last
+            bit, and run to run; times it beside x.sum(-1); returns its result."""
+            got = ordered_sum_cuda(x, SUM_SEGMENT)
+            want = ref.ordered_sum_ref(x.cpu(), SUM_SEGMENT)
+            if not (torch.equal(got.cpu(), want) and torch.equal(ordered_sum_cuda(x), got)):
+                raise AssertionError(f"ordered_sum {tag} differs: max abs err "
+                                     f"{(got.cpu() - want).abs().max().item()}")
+            k, n = x.shape
+            if timed and k and n:
+                m = -(-n // SUM_SEGMENT)
+                timings(f"ordered_sum {tag}", lambda: ordered_sum_cuda(x, SUM_SEGMENT),
+                        lambda: x.sum(-1), 8 * k * n + 8 * k,
+                        min(n, SUM_SEGMENT) + (m if m > 1 else 1))
             return got
 
         rng = np.random.default_rng(0)
+
+        def spread(n):  # values of mixed sign over about ±8 decades
+            return rng.standard_normal(n) * np.exp(rng.standard_normal(n) * 8)
+
         hubs = rng.poisson(0.45, 200_000)
         hubs[rng.integers(0, hubs.size, 30)] = 2500
-        shapes = [[0, 3, 0, 0, 5, 1], [1] * 50, [0] * 7, [4000, 0, 2, 3000], hubs.tolist()]
-        for lengths in shapes:
+        shapes = {"mixed": [0, 3, 0, 0, 5, 1], "ones": [1] * 50, "empty": [0] * 7,
+                  "wide": [4000, 0, 2, 3000], "hubs": hubs.tolist(),
+                  "31/32/33/1024": [31, 32, 33, 1024, 0, 33, 31] * 40}
+        for tag, lengths in shapes.items():
             n = int(np.sum(lengths))
-            vals = rng.standard_normal(n) * np.exp(rng.standard_normal(n) * 8)
             indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
-            check(torch.as_tensor(indptr, device=dev), torch.as_tensor(vals, device=dev))
+            check(torch.as_tensor(indptr, device=dev), torch.as_tensor(spread(n), device=dev),
+                  tag)
         bs, pr = ctx["bs_card"], ctx["pr_card"]
         share = torch.where(bs.deg > 0, pr / torch.clamp(bs.deg, min=1e-300), 0.0)
         step = (bs.deg_w * share[bs.cols]).contiguous()  # a PageRank step's products
-        got = check(bs.indptr, step)
-        if not torch.equal(check(bs.indptr, bs.deg_w), bs.deg):
+        got = check(bs.indptr, step, "PageRank step")
+        if not torch.equal(check(bs.indptr, bs.deg_w, "deg", timed=False), bs.deg):
             raise AssertionError("segment_sum of deg_w is not the block summary's deg")
-        if not torch.equal(segment_sum_cuda(bs.indptr, step), got):
+        if not torch.equal(segment_sum_cuda(bs.indptr, step, bs.long_rows), got):
             raise AssertionError("two launches on one input differ")
         # whether a PyTorch call gives these row sums (np.add.at's order, the
         # same on every run): each taken twice on the card
@@ -866,38 +983,65 @@ def run(tmp: str) -> int:
                         f"sum: {torch.equal(whole, rowwise)} (max diff "
                         f"{(whole - rowwise).abs().max().item():.3g})")
         log("PyTorch calls on the PageRank step's row sums: " + "; ".join(verdicts))
-        # an ordered sum's first pass over a 64-slot batch of CSR-entry terms
-        terms = step.repeat(SERVE_SLOTS)
-        nnz = bs.nnz
-        starts = (torch.arange(SERVE_SLOTS, device=dev)[:, None] * nnz
-                  + torch.arange(0, nnz, 1024, device=dev)[None, :]).reshape(-1)
-        check(torch.cat([starts, torch.tensor([terms.numel()], device=dev)]), terms)
-        s = bs.num_blocks
-        ms = time_cuda(torch, lambda: segment_sum_cuda(bs.indptr, step), launches=100)
-        prof_ms = profiled_ms(torch, lambda: segment_sum_cuda(bs.indptr, step),
-                              "segment_sum_kernel", launches=100)
+
+        # ordered_sum: empty and ragged rows, then the query path's five shapes
+        for k, n in ((0, 5), (3, 0), (1, 1023), (1, 1024), (1, 1025), (9, 1023), (9, 1024),
+                     (9, 1025), (64, 1023), (64, 1024), (64, 1025)):
+            check_ordered(torch.as_tensor(spread(k * n).reshape(k, n), device=dev),
+                          f"[{k}, {n}]")
+        s, nnz = bs.num_blocks, bs.nnz
+        gen = torch.Generator(device=dev).manual_seed(0)
+        terms = {}
+        for k, n, tag in ((1, s, "S"), (9, s, "S"), (64, s, "S"), (9, nnz, "nnz"),
+                          (64, nnz, "nnz")):
+            x = torch.randn(k, n, dtype=torch.float64, device=dev, generator=gen)
+            x = x * torch.exp(8 * torch.randn(k, n, dtype=torch.float64, device=dev,
+                                              generator=gen))
+            check_ordered(x, f"[{k}, {tag}]")
+            terms[(k, tag)] = x
+        dangling = torch.where(bs.deg <= 0, pr * bs.sizes, 0.0)[None]  # PageRank's own
+        check_ordered(dangling.contiguous(), "[1, S] dangling mass", timed=False)
+        for name, r in timed_rows.items():
+            bound = max(r["bytes"], r["chain"])
+            how = "device time" if r["profiled"] else "back to back"
+            log(f"  {name}: kernel {r['ms']:.4f} ms ({how}; back to back {r['back']:.4f}), "
+                f"{'torch.segment_reduce' if name.startswith('csr') else 'x.sum(-1)'} "
+                f"{r['lib']:.4f} ms, bound {bound:.4f} ms (bytes {r['bytes']:.4f}, chain "
+                f"{r['chain']:.4f}), {100 * bound / r['ms']:.0f}% of it")
+        csr, dense = timed_rows["csr PageRank step"], timed_rows["ordered_sum [9, nnz]"]
+        x = terms[(9, "nnz")]
+        ord_plain = time_cuda(torch, lambda: ref.ordered_sum_ref(x, SUM_SEGMENT))
         plain_ms = time_cuda(torch, lambda: ref.segment_sum_ref(bs.indptr, step))
-        library_ms = time_cuda(torch, lambda: torch.segment_reduce(step, "sum",
-                                                                   offsets=bs.indptr),
-                               launches=100)
-        t_bytes = (8 * (s + 1) + 8 * nnz + 8 * s) / HBM_BYTES_PER_S * 1e3
+        t_bytes = (8 * (s + 1) + 8 * nnz + 8 * s + 8 * bs.long_rows.numel()) \
+            / HBM_BYTES_PER_S * 1e3
         t_ops = nnz / FP64_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        log(f"segment_sum on test shapes and the block CSR (S={s} segments, nnz={nnz} "
-            f"values; deg, a PageRank step; 64 x nnz in 1024-value segments): equal to the "
-            f"plain version and to np.add.at bit for bit, and run to run; kernel {ms:.4f} ms "
-            f"(100 launches back to back; profiler {fmt_ms(prof_ms)} ms), plain on the card "
-            f"{plain_ms:.4f} ms, torch.segment_reduce {library_ms:.4f} ms, bound "
-            f"{bound:.4f} ms (bytes {t_bytes:.4f}, fp64 {t_ops:.6f})")
+        ob_bytes = (8 * x.numel() + 8 * x.shape[0]) / HBM_BYTES_PER_S * 1e3
+        ob_ops = x.numel() / FP64_FLOPS * 1e3
+        log(f"segment_sum on test shapes and the block CSR (S={s} rows, nnz={nnz} values, "
+            f"{bs.long_rows.numel()} rows over {LONG_ROW} values, widest {bs.max_row_nnz()}; "
+            f"deg, a PageRank step) and ordered_sum on empty, ragged and the query path's "
+            f"shapes: equal to the plain versions (and the CSR to np.add.at) bit for bit, and "
+            f"run to run. Plain versions on the card: PageRank step {plain_ms:.4f} ms, "
+            f"ordered_sum [9, nnz] {ord_plain:.4f} ms")
         smoke.kernels["segment_sum"] = dict(
             name="segment_sum", route="cuda",
             source="src/repro_torch/kernels/csrc/segment_sum.cu",
             replaces="src/repro/core/queries_jax.py:181",
-            launches=ctx["serve_counts"]["segment_sum"], max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound,
-            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=library_ms)
+            launches=ctx["serve_counts"]["segment_sum"], max_abs_err=0.0, ms=csr["ms"],
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=csr["lib"],
+            ms_back_to_back=csr["back"], two_term_bound_ms=max(csr["bytes"], csr["chain"]))
+        smoke.kernels["ordered_sum"] = dict(
+            name="ordered_sum", route="cuda",
+            source="src/repro_torch/kernels/csrc/segment_sum.cu",
+            replaces="src/repro/core/queries.py:198",
+            launches=ctx["serve_counts"]["ordered_sum"], max_abs_err=0.0, ms=dense["ms"],
+            plain_ms=ord_plain, bound_ms=max(ob_bytes, ob_ops),
+            bound_by="bytes" if ob_bytes >= ob_ops else "operations", library_ms=dense["lib"],
+            ms_back_to_back=dense["back"],
+            two_term_bound_ms=max(dense["bytes"], dense["chain"]))
 
-    smoke.phase("7c segment_sum", phase_segment_sum)
+    smoke.phase("7c fixed-order sums", phase_segment_sum)
 
     # ---- 7d. where a serving step's time goes --------------------------------
     def phase_query_breakdown():
@@ -966,7 +1110,7 @@ def run(tmp: str) -> int:
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
-    names = ("merge_gain", "pair_cost", "segment_sum")
+    names = ("merge_gain", "pair_cost", "segment_sum", "ordered_sum")
     for k in names:
         if "launches" not in smoke.kernels.get(k, {}):
             log(f"chip_smoke: no numbers for {k}")

@@ -24,11 +24,12 @@ power step) go through :func:`repro_torch.kernels.ops.segment_sum`, which
 adds each row's entries in storage order from zero: ``np.add.at``'s order,
 so ``deg`` equals the reference's bit for bit and a power step's row sums
 do too. Every longer sum (cut mass, volumes, the dangling mass, wedge sums)
-is :func:`ordered_sum`: fixed segments of ``SUM_SEGMENT`` values, then their
-partial sums, in order. That order does not depend on the device or on how
-many sums are taken at once, so an answer has the same bits on the card
-and on the CPU, in any batch, on every run; it is not numpy's pairwise
-order, so those answers agree with the reference to rounding.
+is :func:`ordered_sum` (:func:`repro_torch.kernels.ops.ordered_sum`): fixed
+segments of ``SUM_SEGMENT`` values, then their partial sums, in order. That
+order does not depend on the device or on how many sums are taken at once,
+so an answer has the same bits on the card and on the CPU, in any batch, on
+every run; it is not numpy's pairwise order, so those answers agree with the
+reference to rounding.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.core.types import SummaryResult, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.segment_sum import long_rows
 
 # Build counter for the memoization test: successive queries against the
 # same SummaryResult on one device reuse the CSR instead of rebuilding it.
@@ -47,7 +49,7 @@ BLOCK_BUILDS = 0
 
 _CACHE_ATTR = "_torch_block_summary_cache"
 
-SUM_SEGMENT = 1024  # values a thread adds in order in the first pass of ordered_sum
+SUM_SEGMENT = 1024  # values added in order in the first fold of ordered_sum
 WEDGE_CHUNK = 1 << 22  # wedges (a<b<c) materialized at once by triangle_sum
 
 F64 = torch.float64
@@ -64,7 +66,8 @@ class BlockSummary:
     blocks) skipped. ``deg_w[e] = σ_e · (n_col − [col == row])`` is the
     per-entry expected-degree weight, ``deg[a]`` its row sum. The port also
     keeps each entry's row and the globally sorted key ``row·S + col`` (the
-    pair lookup's search array), which the reference recomputes per query.
+    pair lookup's search array), which the reference recomputes per query,
+    and the rows long enough for the row-sum kernel to give a warp each.
     """
 
     ids: torch.Tensor  # int32[S] original supernode ids (sorted)
@@ -78,6 +81,7 @@ class BlockSummary:
     num_nodes: int  # |V|
     rows: torch.Tensor  # int32[nnz] row of every CSR entry
     key: torch.Tensor  # int64[nnz] row·S + col, ascending
+    long_rows: torch.Tensor  # int64[L] rows of more than LONG_ROW entries
 
     @property
     def num_blocks(self) -> int:
@@ -144,12 +148,13 @@ def build_block_summary(res: SummaryResult,
     indptr = torch.zeros(s + 1, dtype=torch.int64, device=dev)
     indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=s), 0)
     deg_w = sigs * (n[cols] - (cols == rows).to(F64))
-    deg = ops.segment_sum(indptr, deg_w)
+    long = long_rows(indptr)
+    deg = ops.segment_sum(indptr, deg_w, long)
 
     bs = BlockSummary(
         ids=ids.to(torch.int32), node2block=node2block, sizes=n, indptr=indptr,
         cols=cols.to(torch.int32), sigma=sigs, deg_w=deg_w, deg=deg,
-        num_nodes=int(n2s.shape[0]), rows=rows.to(torch.int32), key=key,
+        num_nodes=int(n2s.shape[0]), rows=rows.to(torch.int32), key=key, long_rows=long,
     )
     cache[str(dev)] = bs
     return bs
@@ -161,17 +166,8 @@ def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     """Row sums of ``x`` ([k, n] float64 → [k]) in a fixed order: segments of
     ``SUM_SEGMENT`` values left to right, then the segments' sums left to
     right. Each row's result depends on that row alone, and is the same on
-    the card and on the CPU."""
-    k, n = x.shape
-    dev = x.device
-    if n == 0 or k == 0:
-        return torch.zeros(k, dtype=F64, device=dev)
-    m = -(-n // SUM_SEGMENT)
-    starts = (torch.arange(k, device=dev)[:, None] * n
-              + torch.arange(m, device=dev)[None, :] * SUM_SEGMENT).reshape(-1)
-    indptr = torch.cat([starts, torch.tensor([k * n], device=dev)])
-    part = ops.segment_sum(indptr, x.reshape(-1).to(F64).contiguous())
-    return ops.segment_sum(torch.arange(0, k * m + 1, m, device=dev), part)
+    the card and on the CPU. One kernel launch on the card."""
+    return ops.ordered_sum(x.to(F64).contiguous(), SUM_SEGMENT)
 
 
 # --------------------------------------------------------- point queries
@@ -221,7 +217,7 @@ def pagerank_power(bs: BlockSummary, damping: float = 0.85, iters: int = 50,
     steps = 0
     for _ in range(iters):
         share = torch.where(has_deg, p / deg_floor, 0.0)
-        new = ops.segment_sum(bs.indptr, bs.deg_w * share[bs.cols])
+        new = ops.segment_sum(bs.indptr, bs.deg_w * share[bs.cols], bs.long_rows)
         dangling = ordered_sum(torch.where(dangling_rows, p * bs.sizes, 0.0)[None])[0]
         new = (1.0 - damping) / v_total + damping * (new + dangling / v_total)
         steps += 1

@@ -2,9 +2,9 @@
 
 Port of ``repro/kernels/ref.py`` (``entropy_bits_ref``, ``pair_cost_ref``,
 ``merge_gain_ref``), operation for operation in the reference's order, and
-``segment_sum_ref``, the query engine's row reduction. They are what a CPU
-tensor runs (:mod:`repro_torch.kernels.ops`) and what the CUDA and Triton
-kernels are held against on the card.
+``segment_sum_ref`` and ``ordered_sum_ref``, the query engine's fixed-order
+sums. They are what a CPU tensor runs (:mod:`repro_torch.kernels.ops`) and
+what the CUDA and Triton kernels are held against on the card.
 
 On a CPU tensor, ``log2`` and the sums over U are taken as the reference's
 XLA:CPU takes them (:mod:`repro_torch.utils.f32math`), so the gains agree
@@ -115,3 +115,19 @@ def segment_sum_ref(indptr: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     seg = torch.repeat_interleave(torch.arange(n_seg, device=vals.device), lengths)
     out = torch.zeros(n_seg, dtype=torch.float64, device=vals.device)
     return out.index_add_(0, seg, vals[:seg.numel()].to(torch.float64))
+
+
+def ordered_sum_ref(x: torch.Tensor, segment: int = 1024) -> torch.Tensor:
+    """Row sums of ``x`` ([k, n] → float64[k]) in a fixed order: each row's
+    ``segment``-value segments added left to right from zero, then those
+    partial sums left to right from zero — two :func:`segment_sum_ref` passes
+    with explicit offsets."""
+    k, n = x.shape
+    if k == 0 or n == 0:
+        return torch.zeros(k, dtype=torch.float64, device=x.device)
+    m = -(-n // segment)
+    starts = (torch.arange(k, device=x.device)[:, None] * n
+              + torch.arange(m, device=x.device)[None, :] * segment).reshape(-1)
+    indptr = torch.cat([starts, starts.new_full((1,), k * n)])
+    part = segment_sum_ref(indptr, x.reshape(-1).to(torch.float64))
+    return segment_sum_ref(torch.arange(0, k * m + 1, m, device=x.device), part)

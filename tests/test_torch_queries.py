@@ -37,7 +37,7 @@ from repro_torch.core.query_engine import (
 from repro_torch.core.types import SummaryResult
 from repro_torch.graphs import generate
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.segment_sum import segment_sum_cuda
+from repro_torch.kernels.segment_sum import LONG_ROW, long_rows, ordered_sum_cuda, segment_sum_cuda
 
 torch.set_num_threads(1)
 
@@ -316,6 +316,100 @@ def test_segment_sum_kernel_refuses_cpu_tensors():
         ops.segment_sum(torch.zeros(2, dtype=torch.int64), torch.zeros(1, dtype=torch.float64),
                         backend="kernel")
     assert ops.launch_counts() == before
+
+
+def _spread(rng, shape):
+    """Values of mixed sign whose exponents spread over about ±8 decades."""
+    return rng.standard_normal(shape) * np.exp(rng.standard_normal(shape) * 8)
+
+
+def _two_pass(x: torch.Tensor) -> torch.Tensor:
+    """The two ``segment_sum_ref`` passes that ``ordered_sum`` made before it
+    had a kernel of its own, as they were written."""
+    k, n = x.shape
+    if n == 0 or k == 0:
+        return torch.zeros(k, dtype=torch.float64)
+    m = -(-n // PQ.SUM_SEGMENT)
+    starts = (torch.arange(k)[:, None] * n
+              + torch.arange(m)[None, :] * PQ.SUM_SEGMENT).reshape(-1)
+    indptr = torch.cat([starts, torch.tensor([k * n])])
+    part = ref.segment_sum_ref(indptr, x.reshape(-1).to(torch.float64).contiguous())
+    return ref.segment_sum_ref(torch.arange(0, k * m + 1, m), part)
+
+
+@pytest.mark.parametrize("k", [0, 1, 9, 64])
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 5000])
+def test_ordered_sum_plain_version_is_the_two_pass_order(k, n):
+    """Bit for bit the old two-pass composition, and numpy's ``np.add.at`` of
+    each 1024-value segment, then of the segments' sums."""
+    x = torch.as_tensor(_spread(np.random.default_rng(k * 7919 + n), (k, n)))
+    got = ref.ordered_sum_ref(x, PQ.SUM_SEGMENT)
+    assert got.dtype == torch.float64 and got.shape == (k,)
+    assert torch.equal(got, _two_pass(x))
+    m = max(-(-n // PQ.SUM_SEGMENT), 1)
+    part = np.zeros(k * m)
+    np.add.at(part, (np.arange(k)[:, None] * m + np.arange(n)[None, :] // PQ.SUM_SEGMENT
+                     ).reshape(-1), x.numpy().reshape(-1))
+    want = np.zeros(k)
+    np.add.at(want, np.repeat(np.arange(k), m), part)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_ordered_sum_dispatch_on_the_cpu():
+    """``ops.ordered_sum`` takes the plain version for a CPU tensor, launches
+    nothing, and refuses ``backend="kernel"``; ``queries.ordered_sum`` is it."""
+    x = torch.as_tensor(_spread(np.random.default_rng(5), (3, 2100)))
+    before = ops.launch_counts()
+    want = ref.ordered_sum_ref(x, PQ.SUM_SEGMENT)
+    for backend in (None, "ref"):
+        assert torch.equal(ops.ordered_sum(x, PQ.SUM_SEGMENT, backend=backend), want)
+    assert torch.equal(PQ.ordered_sum(x), want)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ordered_sum(x, PQ.SUM_SEGMENT, backend="kernel")
+    assert ops.launch_counts() == before
+    assert ops.launch_counts()["ordered_sum"] == ordered_sum_cuda.launches
+
+
+@pytest.mark.parametrize("x, match", [
+    (torch.zeros(2, 8, dtype=torch.float64), "CUDA"),
+    (torch.zeros(8, 2, dtype=torch.float64).t(), "contiguous"),
+    (torch.zeros(2, 8, dtype=torch.float32), "float64"),
+    (torch.zeros(16, dtype=torch.float64), "2-D"),
+], ids=["cpu", "non-contiguous", "float32", "1-d"])
+def test_ordered_sum_kernel_refuses_what_it_does_not_take(x, match):
+    before = ordered_sum_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        ordered_sum_cuda(x, PQ.SUM_SEGMENT)
+    assert ordered_sum_cuda.launches == before
+
+
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 33, 4000])
+def test_segment_sum_plain_version_is_numpy_order_around_the_warp(length):
+    """Rows on both sides of the kernel's long-row threshold (``LONG_ROW``),
+    between empty and one-value rows: bit for bit ``np.add.at``."""
+    lengths = [length, 0, 1, length, length]
+    rng = np.random.default_rng(length)
+    vals = _spread(rng, sum(lengths))
+    want = np.zeros(len(lengths))
+    np.add.at(want, np.repeat(np.arange(len(lengths)), lengths), vals)
+    indptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64))
+    got = ops.segment_sum(indptr, torch.as_tensor(vals), long_rows(indptr))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lengths", [[], [0], [31, 32, 33, 0, 1024], [33] * 5,
+                                     [0, 4000, 2, 2500]])
+def test_long_rows_lists_the_rows_longer_than_a_warp(lengths):
+    indptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64))
+    got = long_rows(indptr)
+    assert got.dtype == torch.int64
+    assert got.tolist() == np.nonzero(np.asarray(lengths) > LONG_ROW)[0].tolist()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_block_summary_keeps_its_long_rows(name):
+    bs = port_engine(fresh(name)).bs
+    assert torch.equal(bs.long_rows, long_rows(bs.indptr))
 
 
 def test_node_ids_out_of_range_raise():
