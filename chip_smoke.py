@@ -21,6 +21,10 @@ card and CPU runs. Phases, one line each or a few:
   4. the main path at full size: budget met, metrics finite, each kernel
      launched once per round; then one round replayed stage by stage, and
      once under torch.profiler, to show where its time goes;
+  4c. determinism: a second full-size run equal to phase 4's bit for bit
+     (``node2super``, ``super_size``, ``edge_w``, the integer history); the
+     exact total costs against the ``index_add_`` pair they replaced, on the
+     pair tables of round 1 and of the final partition;
   5. card against CPU on the golden fixture, with the same permutations;
   6. edge-list input: the stand-in written as SNAP text with noise, read back
      through ``load_graph`` (identical to ``generate``), then a cache hit;
@@ -36,7 +40,13 @@ card and CPU runs. Phases, one line each or a few:
      path's five shapes; each timed beside a PyTorch call, with the card's
      dependent float64 add latency and each shape's two-term bound;
   7d. where a serving step's time goes: engine build, PageRank, triangles,
-     a 64-slot batch of each kind alone; eight steps under torch.profiler.
+     a 64-slot batch of each kind alone; eight steps under torch.profiler;
+  8. checkpoint and resume through the launcher (``repro_torch.launch.chaos``)
+     on phase 6's file: a golden run, a run with ``--checkpoint-every 1``
+     (its wall, bytes a step, snapshot and write times), a run SIGTERM'd
+     once step 6 is committed (exit 75) and one SIGKILL'd at step 12, each
+     resumed, equal to the golden on every exact key and digest, with each
+     kernel launched once per resumed round.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
@@ -83,6 +93,7 @@ QUERY_TOL = {"degree": (1e-12, 1e-15), "adjacency": (1e-12, 1e-15),
              "pagerank": (1e-9, 1e-12), "triangle": (1e-9, 0.0), "khop": (0.0, 1e-9),
              "cut": (0.0, 1e-9), "conductance": (0.0, 1e-9)}
 ALL_KINDS = "degree,adjacency,pagerank,triangle,khop,cut,conductance"
+INT_STATS = ("nmerges", "num_supernodes", "num_superedges")
 SERVE_REQUESTS = 4096
 SERVE_SLOTS = 64
 
@@ -350,7 +361,7 @@ def run(tmp: str) -> int:
         from repro_torch.core import costs, merge, shingles, summarize, tables
         from repro_torch.core.convert import ReplayPermutations
         from repro_torch.core.engine import LocalBackend
-        from repro_torch.core.types import SummaryConfig, init_state, make_graph
+        from repro_torch.core.types import SummaryConfig, SummaryState, init_state, make_graph
         from repro_torch.graphs import generate
         from repro_torch.kernels import build, ops, ref
         from repro_torch.kernels.entropy_bits import pair_cost_triton
@@ -596,6 +607,9 @@ def run(tmp: str) -> int:
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         ctx["res"] = res
+        ctx["res_arrays"] = {k: getattr(res, k).copy()
+                             for k in ("node2super", "super_size", "edge_w")}
+        ctx["res_ints"] = [[h[k] for k in INT_STATS] for h in res.history]
         for k in ("merge_gain", "pair_cost"):
             if k in smoke.kernels:
                 smoke.kernels[k]["launches"] = counts[k]
@@ -693,6 +707,79 @@ def run(tmp: str) -> int:
 
     smoke.phase("4b round breakdown", phase_breakdown)
 
+    # ---- 4c. a deterministic round: two full-size runs repeat bit for bit ----
+    def phase_determinism():
+        src, dst, v, cfg = ctx["src"], ctx["dst"], ctx["v"], ctx["cfg"]
+        first, first_ints = ctx["res_arrays"], ctx["res_ints"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = summarize(src, dst, v, cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        ints = [[h[k] for k in INT_STATS] for h in again.history]
+        diff_rounds = [i + 1 for i, (a, b) in enumerate(zip(first_ints, ints)) if a != b]
+        same = {k: np.array_equal(first[k], getattr(again, k)) for k in first}
+        rounds = [h["round_s"] * 1e3 for h in again.history]
+        log(f"second full-size run: {again.iterations_run} rounds, wall {wall:.2f} s, median "
+            f"round {np.median(rounds):.1f} ms; against phase 4's run: arrays equal {same}, "
+            f"integer history equal {ints == first_ints}, first differing round "
+            f"{diff_rounds[0] if diff_rounds else None}, node2super entries differing "
+            f"{int((first['node2super'] != again.node2super).sum())}")
+        # the repaired sum and the index_add_ pair it replaced, on the pair
+        # tables of round 1 and of the final partition
+        graph, _ = make_graph(src, dst, v, dev)
+        states = {"round 1": init_state(v, dev), "final": SummaryState(
+            node2super=torch.as_tensor(first["node2super"], device=dev).long(),
+            size=torch.as_tensor(first["super_size"], device=dev).long(), t=21)}
+        distinct = {}
+        for tag, state in states.items():
+            pt = costs.build_pair_table(graph.src, graph.dst, state)
+            met = costs.summary_metrics(pt, state, v, graph.num_edges)
+            scal = torch.stack([met["cbar"], costs.log2_f32(v, dev)])
+            pi = costs.pair_pi(pt, state.size)
+            cost = torch.where(pt.valid, pair_cost_triton(pt.cnt, pi, scal), 0.0)
+            hi_cost = torch.where(pt.lo != pt.hi, cost, 0.0)
+            bound = 2.0 * pt.capacity * np.log2(v)
+
+            def atomic():  # the index_add_ pair of the parent's supernode_total_costs
+                out = torch.zeros(v, dtype=torch.float32, device=dev)
+                return out.index_add_(0, pt.lo, cost).index_add_(0, pt.hi, hi_cost)
+
+            def exact():
+                return costs.exact_index_sum(v, (pt.lo, pt.hi), (cost, hi_cost), bound)
+
+            for name, fn in (("index_add_", atomic), ("exact", exact)):
+                distinct[f"{name}, {tag}"] = len({fn().cpu().numpy().tobytes()
+                                                  for _ in range(5)})
+            if not torch.equal(costs.supernode_total_costs(pt, pi, scal, v), exact()):
+                raise AssertionError("supernode_total_costs does not take the exact sum")
+            # the exact sum, rounded once: float64 adds of these terms (at least
+            # 2 bits each, float32) are exact while a total stays below 2^30
+            c64, h64 = cost.double().cpu(), hi_cost.double().cpu()
+            want = torch.zeros(v, dtype=torch.float64).index_add_(
+                0, pt.lo.cpu(), c64).index_add_(0, pt.hi.cpu(), h64)
+            chain = torch.zeros(v).index_add_(0, pt.lo.cpu(), cost.cpu()).index_add_(
+                0, pt.hi.cpu(), hi_cost.cpu())
+            got = exact().cpu()
+            if want.max().item() < 2.0 ** 30 and not torch.equal(got, want.float()):
+                raise AssertionError(f"{tag}: the exact sum differs from the rounded float64 "
+                                     f"sum at {int((got != want.float()).sum())} ids")
+            atomic_ms = time_cuda(torch, atomic)
+            exact_ms = time_cuda(torch, exact)
+            total_ms = time_cuda(torch, lambda: costs.supernode_total_costs(pt, pi, scal, v))
+            log(f"total costs, {tag} pair table ({int(pt.valid.sum())} pairs, largest total "
+                f"{want.max().item():.6g} bits): the exact sum equals the rounded float64 sum; "
+                f"against the CPU's float32 chain {int((got != chain).sum())} of {v} ids "
+                f"differ, max abs diff {(got - chain).abs().max().item():.3g}; sum step: "
+                f"index_add_ pair {atomic_ms:.4f} ms, exact {exact_ms:.4f} ms; whole function "
+                f"(pair_cost kernel included) {total_ms:.4f} ms")
+        log(f"distinct results of 5 calls: {distinct}")
+        if any(n != 1 for k, n in distinct.items() if k.startswith("exact")):
+            raise AssertionError("the exact sum gave different bits from call to call")
+        if not (all(same.values()) and ints == first_ints):
+            raise AssertionError("two full-size card runs of one config differ")
+
+    smoke.phase("4c determinism", phase_determinism)
+
     # ---- 5. card against CPU on the golden fixture --------------------------
     def phase_card_vs_cpu():
         src, dst, v = generate("ego-facebook", seed=0, scale=0.08)
@@ -725,7 +812,8 @@ def run(tmp: str) -> int:
         same = [all(a[k] == b[k] for k in ("nmerges", "num_supernodes", "num_superedges"))
                 for a, b in zip(hc, hg)]
         first_diff = same.index(False) + 1 if False in same else None
-        log(f"later rounds (not asserted; float atomics on the card): {len(hc)} CPU "
+        log(f"later rounds (not asserted; the card adds the total costs exactly, the CPU "
+            f"in the reference's float32 order): {len(hc)} CPU "
             f"rounds, {len(hg)} card rounds, integer stats agree in "
             f"{sum(same)}/{min(len(hc), len(hg))}, first difference at round "
             f"{first_diff}; final supernodes CPU {runs['cpu'].num_supernodes} card "
@@ -1106,6 +1194,69 @@ def run(tmp: str) -> int:
             log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
     smoke.phase("7d query breakdown", phase_query_breakdown)
+
+
+    # ---- 8. checkpoint, preemption and resume through the launcher ----------
+    def phase_resume():
+        import argparse
+        from repro_torch.launch import chaos
+        from repro_torch.launch.summarize import digest
+        args = argparse.Namespace(edge_list=ctx["edge_list"], dataset=None, scale=1.0,
+                                  k_frac=0.3, T=20, seed=0, group_size=32, driver_chunk=2,
+                                  checkpoint_every=1, checkpoint_keep=3, device="cuda",
+                                  timeout=300.0)
+        env = chaos.launcher_env()
+        work = os.path.join(ctx["tmp"], "resume")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        golden = chaos.run_to_completion(chaos.launcher_cmd(args), env, args.timeout)
+        golden_s = time.perf_counter() - t0
+        want = golden["digests"].split()[0]
+        vs_phase4 = "phase 4's run not at hand"
+        if "res_arrays" in ctx:
+            in_process = f"node2super={digest(ctx['res_arrays']['node2super'])}"
+            if want != in_process:
+                raise AssertionError(f"the launcher's golden ({want}) differs from phase 4's "
+                                     f"run ({in_process})")
+            vs_phase4 = "equal to phase 4's run (driver_chunk 8)"
+        log(f"golden (no checkpoints, driver_chunk 2): {golden['iterations']} rounds, summarize "
+            f"wall {golden['wall_s']:.2f} s ({golden_s:.1f} s with start-up and load), "
+            f"launches {golden['kernel_launches']}; {want[:27]}..., {vs_phase4}")
+        ckdir = os.path.join(work, "every1")
+        t0 = time.perf_counter()
+        ckpt = chaos.run_to_completion(chaos.launcher_cmd(args, ckdir), env, args.timeout)
+        ckpt_s = time.perf_counter() - t0
+        saves = ckpt["checkpoint_saves"]
+        log(f"--checkpoint-every 1, uninterrupted: summarize wall {ckpt['wall_s']:.2f} s against "
+            f"the golden's {golden['wall_s']:.2f} s ({ckpt_s:.1f} s with start-up and load); "
+            f"{saves} saves of {ckpt['checkpoint_bytes']} bytes a step; snapshot (the loop's "
+            f"stall) {ckpt['checkpoint_snapshot_wall_s'] * 1e3:.2f} ms in all, "
+            f"{ckpt['checkpoint_snapshot_wall_s'] / saves * 1e3:.2f} ms a save; write "
+            f"(writer thread) {ckpt['checkpoint_write_wall_s'] * 1e3:.1f} ms in all, "
+            f"{ckpt['checkpoint_write_wall_s'] / saves * 1e3:.1f} ms a save")
+        errors = chaos.compare(ckpt, golden)
+        for signame, step in (("TERM", 6), ("KILL", 12)):
+            scen = chaos.run_scenario(args, golden, signame, step, work, env)
+            resumed = scen.get("resumed", {})
+            launches = resumed.get("kernel_launches", {})
+            rounds = resumed.get("iterations", 0) - (resumed.get("resumed_from") or 0)
+            log(f"SIG{signame} once step {step} committed (step {scen['step_seen']} seen): exit "
+                f"{scen['kill_rc']}, preempted at step {scen.get('preempt_step')}; resumed "
+                f"from step {scen.get('resume_from')}: {rounds} rounds, launches {launches}, "
+                f"summarize wall {resumed.get('wall_s', float('nan')):.2f} s; exact keys "
+                f"and digests equal to the golden: {not scen['errors']}")
+            errors += scen["errors"]
+            if scen.get("outcome") != "resumed":
+                errors.append(f"SIG{signame}: the run was not resumed ({scen.get('outcome')})")
+            if signame == "TERM" and scen["kill_rc"] != chaos.RESUMABLE_EXIT:
+                errors.append(f"SIGTERM exit {scen['kill_rc']}")
+            if any(launches.get(k) != rounds for k in ("merge_gain", "pair_cost")):
+                errors.append(f"SIG{signame}: launches {launches} != one per resumed round "
+                              f"({rounds})")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("8 checkpoint and resume", phase_resume)
 
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")

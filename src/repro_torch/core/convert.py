@@ -8,7 +8,8 @@ implementations and a round compared:
   * :func:`state_from_numpy` — a reference ``SummaryState`` (its
     ``node2super``, ``size`` and ``t``) as the port's;
   * :class:`ReplayPermutations` — a permutation source that replays given
-    ``(h, tie)`` pairs, one pair per round;
+    ``(h, tie)`` pairs, one pair per round (its position, ``used``, is its
+    checkpointed state);
   * :func:`group_tables_from_numpy` — a reference ``GroupTables`` as the
     port's.
 """
@@ -48,6 +49,19 @@ class ReplayPermutations:
                              f"permutations of length {h.shape[0]}, not {num_nodes}")
         self.used += 1
         return (torch.as_tensor(h, device=device), torch.as_tensor(tie, device=device))
+
+    def state_dict(self) -> dict:
+        """The number of rounds drawn so far."""
+        return {"kind": "replay", "used": self.used}
+
+    def load_state_dict(self, sd: dict) -> None:
+        if sd.get("kind") != "replay":
+            raise ValueError(f"ReplayPermutations cannot load the state of a "
+                             f"{sd.get('kind')!r} permutation source")
+        if not 0 <= sd["used"] <= len(self.rounds):
+            raise ValueError(f"ReplayPermutations: position {sd['used']} is outside "
+                             f"the {len(self.rounds)} rounds held")
+        self.used = int(sd["used"])
 
 
 def group_tables_from_numpy(m, n, s, t, n_u, cidx, w, members, device) -> GroupTables:

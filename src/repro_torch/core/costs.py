@@ -15,6 +15,8 @@ float32 sums of ones are while they stay below 2²⁴.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.types import PairTable, SummaryState
@@ -208,14 +210,45 @@ def supernode_total_costs(pt: PairTable, pi: torch.Tensor, scal: torch.Tensor,
     added to both endpoints (self pairs once).
 
     The per-pair cost is the pair-cost kernel (``ops.pair_cost``), where the
-    reference computes ``pair_cost_star`` with jnp (``costs.py:239``).
-    ``index_add_`` of float costs sums in a run-dependent order on CUDA
-    (atomics), so card runs are not bit-reproducible here; on the CPU the
-    order is the reference's (all ``lo`` adds, then all ``hi`` adds).
+    reference computes ``pair_cost_star`` with jnp (``costs.py:239``). These
+    totals are the merge gain's ``t`` operand, where a last-bit difference
+    can flip an argmax near-tie, so they must not depend on the order of
+    the adds. On the CPU they take the reference's order (``index_add_``:
+    all ``lo`` adds in pair order, then all ``hi`` adds). On the card
+    ``index_add_`` adds floats with atomics, in an order that changes from
+    run to run; there :func:`exact_index_sum` adds the costs exactly.
     """
     cost = torch.where(pt.valid, ops.pair_cost(pt.cnt, pi, scal, backend=backend),
                        _zero(pi))
+    hi_cost = torch.where(pt.lo != pt.hi, cost, _zero(cost))
+    if pi.is_cuda:
+        # every pair cost is at most its explicit bits 2·cnt·log₂V, and the
+        # counts sum to |E|: no total exceeds 2|E|log₂V
+        bound = 2.0 * pt.capacity * math.log2(max(num_nodes, 2))
+        return exact_index_sum(num_nodes, (pt.lo, pt.hi), (cost, hi_cost), bound)
     out = torch.zeros(num_nodes, dtype=F32, device=pi.device)
     out.index_add_(0, pt.lo, cost)
-    out.index_add_(0, pt.hi, torch.where(pt.lo != pt.hi, cost, _zero(cost)))
+    out.index_add_(0, pt.hi, hi_cost)
     return out
+
+
+def exact_index_sum(num: int, idx: tuple[torch.Tensor, ...], vals: tuple[torch.Tensor, ...],
+                    bound: float) -> torch.Tensor:
+    """``out[a] = Σ vals[k][i]`` over every ``idx[k][i] == a``, float32[num],
+    the same bits in any order of addition.
+
+    Each float32 value is scaled by ``2^s`` and rounded to an int64 (exact
+    for every value with magnitude ≥ ``2^(23-s)``), the integers are added
+    with ``index_add_`` (integer addition is associative, so atomics in any
+    order give one result), and each total is rounded once to float32 and
+    scaled back. ``s`` is the largest shift for which ``bound``, an upper
+    bound on every |total|, stays below 2⁶¹. For the total costs (terms of
+    at least 2 bits, ``bound`` = Size(G)) every term is exact and each total
+    is the exact sum of its terms rounded to nearest: more accurate than any
+    chain of float32 adds, and independent of the device's scheduling.
+    """
+    shift = 61 - math.ceil(math.log2(max(bound, 1.0)))
+    acc = torch.zeros(num, dtype=torch.int64, device=vals[0].device)
+    for ids, x in zip(idx, vals):
+        acc.index_add_(0, ids, torch.round(x.double() * 2.0 ** shift).long())
+    return acc.to(F32) * 2.0 ** -shift

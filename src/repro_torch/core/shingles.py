@@ -13,6 +13,10 @@ Randomness comes from a *permutation source*: each round draws the bijection
 permutations (the reference's, in the parity tests). The port cannot
 reproduce JAX's threefry draws, so a run with the default source follows
 another random path than the reference's run with the same seed.
+
+A source's position is part of a run's state: ``state_dict()`` gives it as
+JSON values and ``load_state_dict()`` puts it back, so a checkpointed run
+resumes on the same random path (:class:`~repro_torch.core.engine.EngineCheckpointer`).
 """
 
 from __future__ import annotations
@@ -32,6 +36,14 @@ class PermutationSource(Protocol):
         """``(h, tie)``: two int64 permutations on ``device``."""
         ...
 
+    def state_dict(self) -> dict:
+        """The source's position, as JSON values."""
+        ...
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Continue from a position that :meth:`state_dict` gave."""
+        ...
+
 
 class TorchPermutations:
     """``torch.randperm`` from a generator on the run's device."""
@@ -45,6 +57,26 @@ class TorchPermutations:
         h = torch.randperm(num_nodes, generator=self.generator, device=self.device)
         tie = torch.randperm(num_nodes, generator=self.generator, device=self.device)
         return h.to(device), tie.to(device)
+
+    def state_dict(self) -> dict:
+        """The generator's ``get_state()`` bytes (uint8 values) and device type."""
+        return {"kind": "torch", "device_type": self.device.type,
+                "state": self.generator.get_state().tolist()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Set the generator's state; a state of another kind of source or
+        another device type raises (a CUDA generator's state cannot seed a CPU
+        generator, and the source never reseeds in its place)."""
+        if sd.get("kind") != "torch":
+            raise ValueError(f"TorchPermutations cannot load the state of a "
+                             f"{sd.get('kind')!r} permutation source")
+        if sd.get("device_type") != self.device.type:
+            raise ValueError(
+                f"permutation state was saved by a generator on "
+                f"{sd.get('device_type')!r}; this run's generator is on "
+                f"{self.device.type!r}. Resume on the device the run was "
+                "checkpointed on.")
+        self.generator.set_state(torch.tensor(sd["state"], dtype=torch.uint8))
 
 
 def node_shingles(src: torch.Tensor, dst: torch.Tensor,

@@ -9,7 +9,9 @@ Port of ``repro/core/summarize.py``. ``summarize(src, dst, num_nodes, cfg)``
 
 through :class:`~repro_torch.core.engine.SummaryEngine` on a
 :class:`~repro_torch.core.engine.LocalBackend`. It runs on the card unless
-the caller passes ``device="cpu"``; without CUDA the default raises.
+the caller passes ``device="cpu"``; without CUDA the default raises. With a
+``checkpointer`` the run is crash-safe and ``resume=True`` continues it
+(``core/engine.py``).
 """
 
 from __future__ import annotations
@@ -17,21 +19,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.engine import LocalBackend, SummaryEngine
+from repro_torch.core.engine import EngineCheckpointer, LocalBackend, SummaryEngine
 from repro_torch.core.shingles import PermutationSource
 from repro_torch.core.types import SummaryConfig, SummaryResult
+from repro_torch.runtime.straggler import StragglerMonitor
 
 
 def summarize(src, dst, num_nodes: int, cfg: SummaryConfig = SummaryConfig(),
               device: str | torch.device = "cuda", collect_history: bool = True,
-              perms: PermutationSource | None = None) -> SummaryResult:
+              perms: PermutationSource | None = None, *,
+              checkpointer: EngineCheckpointer | None = None,
+              monitor: StragglerMonitor | None = None,
+              resume: bool = False) -> SummaryResult:
     """Run SSumM on an edge list; returns the summary graph + exact metrics.
 
     ``perms`` is the source of each round's permutations (default: a torch
-    generator seeded from ``cfg.seed`` on ``device``).
+    generator seeded from ``cfg.seed`` on ``device``). ``checkpointer``,
+    ``monitor`` and ``resume`` pass through to
+    :meth:`~repro_torch.core.engine.SummaryEngine.run`.
     """
     backend = LocalBackend(src, dst, num_nodes, cfg, device=device, perms=perms)
-    run = SummaryEngine(backend).run(collect_history=collect_history)
+    run = SummaryEngine(backend).run(collect_history=collect_history,
+                                     checkpointer=checkpointer, monitor=monitor,
+                                     resume=resume)
 
     pt = run.finalize["pair_table"]
     after = run.finalize["after"]
@@ -56,4 +66,8 @@ def summarize(src, dst, num_nodes: int, cfg: SummaryConfig = SummaryConfig(),
         iterations_run=run.iterations_run,
         history=run.history,
         chunk_wall_s=run.chunk_wall_s,
+        straggler_events=run.straggler_events,
+        resumed_from=run.resumed_from,
+        checkpoint_saves=run.checkpoint_saves,
+        checkpoint_snapshot_wall_s=run.checkpoint_snapshot_wall_s,
     )

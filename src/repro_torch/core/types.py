@@ -143,6 +143,11 @@ class SummaryResult:
     iterations_run: int
     history: list[dict[str, Any]] = dataclasses.field(default_factory=list)
     chunk_wall_s: list = dataclasses.field(default_factory=list)
+    # fault tolerance (core/engine.py)
+    straggler_events: list = dataclasses.field(default_factory=list)
+    resumed_from: int | None = None
+    checkpoint_saves: int = 0
+    checkpoint_snapshot_wall_s: float = 0.0
 
 
 def make_graph(src, dst, num_nodes: int,

@@ -241,7 +241,9 @@ def test_launcher_reads_an_edge_list(tmp_path, capsys):
     path = write_edge_list(os.path.join(tmp_path, "fb.txt"), src, dst, v, shuffle=True)
     args = ["--edge-list", path, "--T", "2", "--device", "cpu"]
     first = launch.main(args + ["--chunk-edges", "100"])
-    assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(first))
+    digests, body = capsys.readouterr().out.split("\n", 1)
+    assert digests.startswith("digests node2super=")
+    assert json.loads(body) == json.loads(json.dumps(first))
     assert first["dataset"] == path and first["source"] == "real"
     assert first["V"] == v and first["E"] == len(src)
     assert first["ingest_bytes_parsed"] == os.path.getsize(path)
