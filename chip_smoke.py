@@ -13,9 +13,10 @@ from an edge-list file (``repro_torch.launch.query_serve``) — and compares
 card and CPU runs. Phases, one line each or a few:
 
   1. device: the card's name and power limit, CUDA, the kernels' build time;
-  2. merge_gain (CUDA) against plain: test shapes, C=64/U=256 (shared-memory
-     opt-in), every group of the real round-1 tables; the dense case's time;
-     argmax tie rules;
+  2. merge_gain (CUDA) against plain, on CPU copies and on the card (the
+     plain version adds over U in the reference's order on both): test
+     shapes, C=64/U=256 (shared-memory opt-in), every group of the real
+     round-1 tables; the dense case's time; argmax tie rules;
   3. pair_cost (Triton) against plain: E in {7, 1025, 5000} and the real
      pair table;
   4. the main path at full size: budget met, metrics finite, each kernel
@@ -46,11 +47,19 @@ card and CPU runs. Phases, one line each or a few:
      (its wall, bytes a step, snapshot and write times), a run SIGTERM'd
      once step 6 is committed (exit 75) and one SIGKILL'd at step 12, each
      resumed, equal to the golden on every exact key and digest, with each
-     kernel launched once per resumed round.
+     kernel launched once per resumed round;
+  9. edge-sharded: the launcher's ``--distributed`` on phase 6's file at a
+     world of one over NCCL, twice (the same digests, exact keys and
+     per-round stats), no bucket overflow, the budget met, the size
+     shrinking, each kernel launched once a round; both kernels held against
+     their plain versions on round 1's compact tables (the merge gain's and
+     the pair cost's new call sites); a small case on the card against 2
+     gloo ranks on the CPU.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
-numbers, and as the last line
+numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7 and
+9), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -70,6 +79,7 @@ import traceback
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
 FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
@@ -356,7 +366,7 @@ def run(tmp: str) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.core import costs, merge, shingles, summarize, tables
         from repro_torch.core.convert import ReplayPermutations
@@ -433,7 +443,7 @@ def run(tmp: str) -> int:
 
     # ---- 2. merge_gain kernel against plain --------------------------------
     def phase_merge_gain():
-        errs = []
+        errs, card_errs = [], []
         shapes = [(1, 4, 8), (3, 8, 16), (2, 16, 32), (5, 32, 64), (4, 64, 256),
                   (2, 13, 100), (3, 7, 45)]
         lib = merge_gain_lib._bind()
@@ -453,8 +463,12 @@ def run(tmp: str) -> int:
                                  torch.as_tensor(w, device=dev)]
                 got = merge_gain_cuda(*ops_in, scal)
                 errs.append(gain_error(got, plain_gain_cpu(ref, ops_in, scal)))
+                card_errs.append(gain_error(got, ref.merge_gain_ref(*ops_in, scal[0],
+                                                                    scal[1])))
                 check_gain_shape(got)
-        log(f"merge_gain test shapes {shapes} x sparse/dense: max abs err {max(errs):.3g}")
+        log(f"merge_gain test shapes {shapes} x sparse/dense: max abs err {max(errs):.3g} "
+            f"against the plain version on CPU copies, {max(card_errs):.3g} against the "
+            f"plain version on the card")
 
         # every group of the real round-1 tables, 512 groups at a time
         gt, scal = ctx["gt"], ctx["scal"]
@@ -470,6 +484,16 @@ def run(tmp: str) -> int:
                 (got[0][lo:lo + 512], got[1][lo:lo + 512]),
                 plain_gain_cpu(ref, chunk, scal)))
         cpu_s = time.perf_counter() - t0
+        # the plain version on the card adds in the reference's order too
+        # (f32math.sum_last); its log2 is the card's
+        err_card = 0.0
+        for lo in range(0, g_all, 512):
+            chunk = [x[lo:lo + 512] for x in full[:7]]
+            err_card = max(err_card, gain_error(
+                (got[0][lo:lo + 512], got[1][lo:lo + 512]),
+                ref.merge_gain_ref(*chunk, scal[0], scal[1])))
+        log(f"merge_gain on all G={g_all} real groups against the plain version on the "
+            f"card: max abs err {err_card:.3g}")
         valid = int(torch.isfinite(got[0]).sum())
         del got
         nz = gt.m != 0
@@ -525,7 +549,8 @@ def run(tmp: str) -> int:
             name="merge_gain", route="cuda",
             source="src/repro_torch/kernels/csrc/merge_gain.cu",
             replaces="src/repro/kernels/merge_gain.py:109",
-            max_abs_err=max(errs + [err_real, err_dense]), ms=ms, plain_ms=plain_ms,
+            max_abs_err=max(errs + card_errs + [err_real, err_dense, err_card]), ms=ms,
+            plain_ms=plain_ms,
             bound_ms=bound, bound_by="bytes" if t_bytes >= max(t_sfu, t_flops)
             else "operations", library_ms=None)
 
@@ -605,6 +630,7 @@ def run(tmp: str) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        ctx["main_counts"] = counts
         peak = torch.cuda.max_memory_allocated()
         ctx["res"] = res
         ctx["res_arrays"] = {k: getattr(res, k).copy()
@@ -1258,6 +1284,189 @@ def run(tmp: str) -> int:
 
     smoke.phase("8 checkpoint and resume", phase_resume)
 
+    # ---- 9. edge-sharded: --distributed at a world of one over NCCL --------
+    def phase_distributed():
+        import contextlib
+        import io
+
+        import torch.distributed as tdist
+        from repro_torch.core.distributed import bucket_bytes
+        from repro_torch.graphs.feed import shard_edges_from_cache
+        from repro_torch.launch import summarize as launch
+
+        rank, world, _ = launch.init_distributed(dev)  # the launcher keeps this group
+        log(f"process group: {tdist.get_backend()}, rank {rank} of {world}")
+        args = ["--edge-list", ctx["edge_list"], "--T", "20", "--k-frac", "0.3",
+                "--distributed", "--device", "cuda"]
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = launch.main(args)
+            torch.cuda.synchronize()
+            digests = [ln for ln in buf.getvalue().splitlines() if ln.startswith("digests")]
+            runs.append((out, digests[0], ops.launch_counts(), torch.cuda.max_memory_allocated()))
+        (out, dig, counts, peak), (out2, dig2, _, _) = runs
+        hist = out["history"]
+        rounds_ms = [h["round_s"] * 1e3 for h in hist]
+        log(f"--distributed (compact, capacity factor 32, world {world}, {out['backend']}): "
+            f"{out['iterations']} rounds, size_bits {out['size_bits']} (before the drop "
+            f"{out['size_bits_before_sparsify']}), relative_size {out['relative_size']}, "
+            f"re1 {out['re1']}, supernodes {out['num_supernodes']}, superedges "
+            f"{out['num_superedges']}, dropped {out['superedges_dropped']}; median round "
+            f"{np.median(rounds_ms):.1f} ms, summarize wall {out['wall_s']:.2f} s, feed "
+            f"{out['feed_wall_s'] * 1e3:.1f} ms ({out['feed_path']}, {out['feed_shard_rows']} "
+            f"rows, staging {out['feed_peak_staging_bytes']} B), sparsify "
+            f"{out['sparsify_wall_s'] * 1e3:.1f} ms, load {out['load_wall_s']:.3f} s "
+            f"(source={out['source']}); peak device memory {peak / 2**30:.2f} GiB; bucket "
+            f"capacity {out['bucket_cap']} records, {out['bucket_bytes']} bytes a round; "
+            f"launches {counts}")
+        log("round ms: " + " ".join(f"{r:.1f}" for r in rounds_ms))
+        errors = []
+        exact = ("size_bits", "size_bits_before_sparsify", "num_supernodes",
+                 "num_superedges", "superedges_dropped", "iterations")
+        ints = [[h[k] for k in ("nmerges", "num_supernodes", "num_superedges", "size_bits")]
+                for h in hist]
+        ints2 = [[h[k] for k in ("nmerges", "num_supernodes", "num_superedges", "size_bits")]
+                 for h in out2["history"]]
+        same = dig == dig2 and ints == ints2 and all(out[k] == out2[k] for k in exact)
+        log(f"second run: {dig2 == dig and 'same digests' or 'digests differ'}, exact keys "
+            f"and per-round stats equal: {same}")
+        if not same:
+            errors.append("two --distributed runs differ")
+        if any(h["overflow"] != 0 for h in hist):
+            errors.append("bucket overflow")
+        if not out["relative_size"] <= 0.3 * (1 + 1e-6):
+            errors.append(f"relative size {out['relative_size']} over k_frac 0.3")
+        # Eq. (4) charges each superedge log2(ω_max) bits: the size may rise
+        # in a round where ω_max rises, and only there
+        sizes = [h["size_bits"] for h in hist]
+        omegas = [h["omega_max"] for h in hist]
+        rose = [i + 1 for i in range(1, len(sizes)) if sizes[i] > sizes[i - 1]]
+        log(f"size_bits a round: {sizes}; ω_max a round: {omegas}; rounds whose size "
+            f"rose: {rose}")
+        if any(omegas[r - 1] <= omegas[r - 2] for r in rose) or not sizes[-1] < sizes[0]:
+            errors.append("the size rose in a round where ω_max did not, or did not shrink")
+        n = out["iterations"]
+        if counts != {"merge_gain": n, "pair_cost": n, "segment_sum": 0, "ordered_sum": 0}:
+            errors.append(f"launch counts {counts} != one of each per round ({n} rounds)")
+        for k in ("merge_gain", "pair_cost"):
+            smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
+                "edge-sharded"] = counts[k]
+
+        # the kernels at the new call sites, on round 1's compact tables
+        sh = shard_edges_from_cache(ctx["edge_list"] + ".ssummcache", rank, world, dev)
+        be = launch.build_distributed_pipeline(ctx["cfg"], ctx["v"], sh.num_edges, dev)
+        be.bind(sh.src, sh.dst)
+        state = be.init()
+        r = be.compact_tables(sh.src, sh.dst, state)
+        gt, scal = r["gt"], r["scal"]
+        full = (gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w)
+        got = merge_gain_cuda(*full, scal)
+        g_all = gt.m.shape[0]
+        err_card = 0.0
+        for lo in range(0, g_all, 512):
+            chunk = [x[lo:lo + 512] for x in full]
+            err_card = max(err_card, gain_error((got[0][lo:lo + 512], got[1][lo:lo + 512]),
+                                                ref.merge_gain_ref(*chunk, scal[0], scal[1])))
+        sel = torch.linspace(0, g_all - 1, 1024, device=dev).long()
+        err_cpu = gain_error((got[0][sel], got[1][sel]),
+                             plain_gain_cpu(ref, [x[sel] for x in full], scal))
+        size = state.size
+        na = size[r["glo"]].float()
+        nb = size[r["ghi"]].float()
+        pi = torch.where(r["glo"] == r["ghi"], na * (na - 1.0) * 0.5, na * nb).contiguous()
+        cnt = r["gcnt"].contiguous()
+        pc = pair_cost_triton(cnt, pi, scal)
+        pc_want = ref.pair_cost_ref(cnt, pi, scal[0], scal[1])
+        np.testing.assert_allclose(pc.cpu().numpy(), pc_want.cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL_REL)
+        err_pc = float((pc - pc_want).abs().max())
+        log(f"round 1's compact tables: G={g_all} C={gt.m.shape[1]} U={gt.m.shape[2]}, "
+            f"{int(r['gvalid'].sum())} exchanged pairs of {cnt.shape[0]} rows, bucket "
+            f"capacity {r['cap']} ({bucket_bytes(r['cap'], world)} bytes); merge_gain "
+            f"against the plain version on the card (all groups): max abs err "
+            f"{err_card:.3g}, on CPU copies (1024 groups): {err_cpu:.3g}; pair_cost against "
+            f"the plain version on the card: max abs err {err_pc:.3g}")
+        for k, e in (("merge_gain", max(err_card, err_cpu)), ("pair_cost", err_pc)):
+            if k in smoke.kernels and "max_abs_err" in smoke.kernels[k]:
+                smoke.kernels[k]["max_abs_err"] = max(smoke.kernels[k]["max_abs_err"], e)
+        del got, gt, r
+
+        # where a compact round's time goes: round 1 replayed stage by stage
+        stages: dict[str, float] = {}
+        for _ in range(2):  # the second pass is kept (allocator warm)
+            torch.cuda.synchronize()
+            t_last = [time.perf_counter()]
+
+            def mark(name):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                stages[name] = (now - t_last[0]) * 1e3
+                t_last[0] = now
+
+            be.compact_tables(sh.src, sh.dst, state, mark=mark)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            be.step(sh.src, sh.dst, state, 0.5, 1)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        rest = step_ms - sum(stages.values())
+        log(f"compact round 1 stages (ms, synchronized): " + ", ".join(
+            f"{k} {x:.1f}" for k, x in stages.items()) + f"; merge_gain, matching, gathers, "
+            f"merge and metrics {rest:.1f} (the step's {step_ms:.1f} less the stages)")
+
+        # a small case: the card at a world of one against 2 gloo ranks on the
+        # CPU, both drawing the CPU generator's permutations (the launcher's
+        # on the CPU; a CUDA generator draws others)
+        from repro_torch.core.shingles import SeededPermutations
+        from repro_torch.graphs.feed import shard_edges
+
+        small = ["--dataset", "ego-facebook", "--scale", "0.05", "--T", "10",
+                 "--k-frac", "0.3", "--distributed"]
+        src_s, dst_s, v_s = generate("ego-facebook", seed=0, scale=0.05)
+        g_s, _ = make_graph(src_s, dst_s, v_s, "cpu")
+        sh_s = shard_edges(g_s.src.numpy(), g_s.dst.numpy(), rank, world, dev)
+        cfg_s = SummaryConfig(T=10, k_frac=0.3)
+        pipe = launch.build_distributed_pipeline(cfg_s, v_s, sh_s.num_edges, dev,
+                                                 perms=SeededPermutations(cfg_s.seed, "cpu"))
+        _, stats_s, _, run_s = launch.run_distributed(sh_s, v_s, cfg_s, dev, pipe)
+        card = dict(stats_s, history=run_s.history, iterations=run_s.iterations_run)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.summarize", *small,
+             "--device", "cpu"], capture_output=True, text=True, timeout=300, env=env,
+            cwd=ROOT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the 2-rank gloo run failed:\n{proc.stdout}\n{proc.stderr}")
+        cpu = json.loads(proc.stdout[proc.stdout.index("digests"):].split("\n", 1)[1])
+        keys = ("nmerges", "num_supernodes", "num_superedges")
+        parted = [i + 1 for i, (a, b) in enumerate(zip(card["history"], cpu["history"]))
+                  if any(a[k] != b[k] for k in keys)]
+        log(f"ego-facebook 0.05, T=10: card (world 1, NCCL) size_bits {card['size_bits']}, "
+            f"supernodes {card['num_supernodes']}, {card['iterations']} rounds; CPU (2 gloo "
+            f"ranks) size_bits {cpu['size_bits']}, supernodes {cpu['num_supernodes']}, "
+            f"{cpu['iterations']} rounds; first round whose integer stats part: "
+            f"{parted[0] if parted else None}")
+        if (parted and parted[0] == 1) or not np.isclose(
+                card["history"][0]["size_bits"], cpu["history"][0]["size_bits"], rtol=RTOL):
+            errors.append("card and CPU part in round 1")
+        if not parted and (card["num_supernodes"] != cpu["num_supernodes"] or not np.isclose(
+                card["size_bits"], cpu["size_bits"], rtol=RTOL)):
+            errors.append("card and CPU agree round by round but not at the end")
+        tdist.destroy_process_group()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("9 edge-sharded", phase_distributed)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -1266,6 +1475,10 @@ def run(tmp: str) -> int:
         if "launches" not in smoke.kernels.get(k, {}):
             log(f"chip_smoke: no numbers for {k}")
             return 1
+        by_path = smoke.kernels[k].setdefault("launches_by_path", {})
+        by_path["summarize"] = ctx["main_counts"][k]
+        by_path["queries"] = ctx["serve_counts"][k]
+        by_path.setdefault("edge-sharded", 0)
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

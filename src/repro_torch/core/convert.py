@@ -10,6 +10,8 @@ implementations and a round compared:
   * :class:`ReplayPermutations` — a permutation source that replays given
     ``(h, tie)`` pairs, one pair per round (its position, ``used``, is its
     checkpointed state);
+  * :class:`ReplayRoundPermutations` — the edge-sharded backend's source
+    that replays the reference's draws by round and rank;
   * :func:`group_tables_from_numpy` — a reference ``GroupTables`` as the
     port's.
 """
@@ -62,6 +64,42 @@ class ReplayPermutations:
             raise ValueError(f"ReplayPermutations: position {sd['used']} is outside "
                              f"the {len(self.rounds)} rounds held")
         self.used = int(sd["used"])
+
+
+class ReplayRoundPermutations:
+    """Replays given draws by ``(round, rank)``: ``h[round - 1][rank]`` and
+    ``tie[round - 1][rank]``. ``tie`` may be None (the compact grouping with
+    the lean sort uses no tie); a draw then gives None for it. A 2-D ``h``
+    (one row a round) serves every rank, as the compact grouping's draw
+    does. Keeps no position."""
+
+    def __init__(self, h, tie=None):
+        self.h = np.asarray(h, np.int64)
+        self.tie = None if tie is None else np.asarray(tie, np.int64)
+
+    def _pick(self, table, round, rank):
+        if round < 1 or round > table.shape[0]:
+            raise IndexError(f"ReplayRoundPermutations holds rounds 1..{table.shape[0]}, "
+                             f"not {round}")
+        row = table[round - 1]
+        return row if row.ndim == 1 else row[rank]
+
+    def draw_at(self, num_nodes, device, round, rank):
+        h = self._pick(self.h, round, rank)
+        tie = None if self.tie is None else self._pick(self.tie, round, rank)
+        if h.shape != (num_nodes,) or (tie is not None and tie.shape != (num_nodes,)):
+            raise ValueError(f"ReplayRoundPermutations: round {round} holds permutations "
+                             f"of length {h.shape[0]}, not {num_nodes}")
+        return (torch.as_tensor(h, device=device),
+                None if tie is None else torch.as_tensor(tie, device=device))
+
+    def state_dict(self) -> dict:
+        return {"kind": "replay-rounds"}
+
+    def load_state_dict(self, sd: dict) -> None:
+        if sd.get("kind") != "replay-rounds":
+            raise ValueError(f"ReplayRoundPermutations cannot load the state of a "
+                             f"{sd.get('kind')!r} permutation source")
 
 
 def group_tables_from_numpy(m, n, s, t, n_u, cidx, w, members, device) -> GroupTables:

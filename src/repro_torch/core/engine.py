@@ -1,9 +1,13 @@
 """SummaryEngine: Alg. 1's loop over a single-device backend, crash-safe.
 
-Port of the local part of ``repro/core/engine.py``: ``theta_schedule_host``,
+Port of ``repro/core/engine.py``: ``theta_schedule_host``,
 ``SummaryEngine.run`` (θ schedule, stopping rule, ``ensure_budget`` rounds,
-finalize), ``LocalBackend``, and the fault tolerance around the loop
-(``EngineCheckpointer``, the fingerprints, ``global_preempt``).
+finalize, with the salt ``t + 1`` passed to ``sparsify_finalize``),
+``LocalBackend``, and the fault tolerance around the loop
+(``EngineCheckpointer``, the fingerprints, ``global_preempt``). The
+edge-sharded backend (:mod:`repro_torch.core.distributed`) plugs into the
+same loop; across ranks the checkpoint is written by rank 0 and read whole
+by every rank, and the preemption flag is agreed at every sync point.
 
 The engine walks the rounds in chunks of ``cfg.driver_chunk`` as the
 reference's does. Inside a chunk the backend reads each round's scalars to
@@ -70,19 +74,33 @@ def theta_schedule_host(t: int, big_t: int) -> float:
     return 1.0 / (1.0 + t) if t < big_t else 0.0
 
 
+def _world() -> tuple[int, int]:
+    """``(rank, world size)`` of ``torch.distributed``'s default group;
+    ``(0, 1)`` when it is not initialized."""
+    dist = torch.distributed
+    if not dist.is_available() or not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
 def global_preempt(local: bool) -> bool:
     """OR a preemption flag across every rank of the run.
 
-    A single process (``torch.distributed`` not initialized, or one rank)
-    returns the local flag. Across ranks the flag must be agreed at every
-    sync point, or a rank that stopped would leave the others waiting in a
-    collective; that all-reduce comes with the port's distributed backend.
+    A signal lands on each rank at a different point of its loop; if one
+    rank stopped at a sync point while another went on into the next
+    round's collectives, the other would wait forever. So every sync point
+    agrees on the flag: an ``all_reduce(MAX)`` over the default group (on
+    the card over NCCL, on the CPU over gloo), and a rank that was
+    signalled stops every rank at the same point. A single process returns
+    the local flag.
     """
-    dist = torch.distributed
-    if not dist.is_available() or not dist.is_initialized() or dist.get_world_size() == 1:
+    if _world()[1] == 1:
         return bool(local)
-    raise NotImplementedError("preemption across ranks needs the distributed backend, "
-                              "which the port does not have yet")
+    dist = torch.distributed
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    flag = torch.tensor([int(bool(local))], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 # ---------------------------------------------------------------------------
@@ -158,18 +176,27 @@ class EngineCheckpointer:
 
     def save(self, backend: "LocalBackend", state: SummaryState, payload: dict, *,
              sync: bool = False) -> int:
+        """Save at a sync point. Across ranks every rank holds the same state:
+        rank 0 writes it and waits for the commit, and every rank waits at a
+        barrier until it is there, so no rank goes on (or exits) ahead of the
+        checkpoint it would resume from."""
         step = int(payload["t_next"]) - 1  # completed rounds
-        extra = dict(payload, fingerprints=self.fingerprints(backend),
-                     perms=backend.perms.state_dict())
-        self.manager.save_async(step, _state_on_disk(state), extra)
-        if sync:
-            self.manager.wait()
+        rank, world = _world()
+        if rank == 0:
+            extra = dict(payload, fingerprints=self.fingerprints(backend),
+                         perms=backend.perms.state_dict())
+            self.manager.save_async(step, _state_on_disk(state), extra)
+            if sync or world > 1:
+                self.manager.wait()
+        if world > 1:
+            torch.distributed.barrier()
         return step
 
     def restore(self, backend: "LocalBackend"):
         """Latest committed ``(state, payload, step)``, or None when nothing
         is committed. Checks the config and graph fingerprints against
-        ``backend`` and puts the state on the backend's device."""
+        ``backend`` and puts the state on the backend's device. Across ranks
+        each rank loads the whole state, whatever rank count wrote it."""
         if self.manager.latest_step() is None:
             return None
         state, step, payload = self.manager.restore(backend.init())
@@ -354,7 +381,7 @@ class SummaryEngine:
             sync_point(state, force=True)
 
         t_sp = time.perf_counter()
-        finalize = backend.sparsify_finalize(state, k_bits)
+        finalize = backend.sparsify_finalize(state, k_bits, iterations_run + 1)
         sparsify_wall_s = time.perf_counter() - t_sp
         snapshot_wall = 0.0
         if ck is not None:
@@ -425,7 +452,9 @@ class LocalBackend:
     def num_supernodes(self, state: SummaryState) -> int:
         return int((state.size > 0).sum())
 
-    def sparsify_finalize(self, state: SummaryState, k_bits: float) -> dict:
+    def sparsify_finalize(self, state: SummaryState, k_bits: float,
+                          salt: int | None = None) -> dict:
+        del salt  # the closed-form drop draws nothing
         pt = costs.build_pair_table(self.graph.src, self.graph.dst, state)
         _drop, after = sparsify.further_sparsify(
             pt, state, self.num_nodes, self.num_edges, k_bits,

@@ -1,9 +1,11 @@
 """Candidate generation (Sect. 3.2.2): min-hash shingles → candidate groups.
 
 Port of ``repro/core/shingles.py`` (``node_shingles``, ``supernode_shingles``,
-``chunk_groups``, ``build_groups``). Supernodes sharing a shingle are within
-2 hops; they are sorted by ``(dead, shingle, random)`` and chunked into
-``[G, C]`` groups.
+``chunk_groups``, ``chunk_groups_lean``, ``build_groups``,
+``build_groups_from_pairs``) and of the edge-sharded backend's
+``_local_supernode_shingles`` (``repro/core/distributed.py:218``).
+Supernodes sharing a shingle are within 2 hops; they are sorted by
+``(dead, shingle, random)`` and chunked into ``[G, C]`` groups.
 
 Randomness comes from a *permutation source*: each round draws the bijection
 ``h`` (``shingles.py:27`` of the reference) and the tie-break permutation
@@ -17,10 +19,20 @@ another random path than the reference's run with the same seed.
 A source's position is part of a run's state: ``state_dict()`` gives it as
 JSON values and ``load_state_dict()`` puts it back, so a checkpointed run
 resumes on the same random path (:class:`~repro_torch.core.engine.EngineCheckpointer`).
+
+The edge-sharded backend draws by ``(round, rank)`` instead
+(:class:`RoundPermutationSource`): the compact grouping draws one ``h`` a
+round that every rank shares (rank 0's draw), the hash grouping one
+``(h, tie)`` per round and rank. :class:`SeededPermutations` derives each
+draw from ``(seed, round, rank)`` alone, so it has no position to save and a
+run resumes on any number of ranks;
+:class:`repro_torch.core.convert.ReplayRoundPermutations` replays the
+reference's draws.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Protocol
 
 import torch
@@ -79,6 +91,59 @@ class TorchPermutations:
         self.generator.set_state(torch.tensor(sd["state"], dtype=torch.uint8))
 
 
+class RoundPermutationSource(Protocol):
+    """Where the edge-sharded backend's permutations come from."""
+
+    def draw_at(self, num_nodes: int, device: torch.device, round: int, rank: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(h, tie)`` of round ``round`` (1-based) on rank ``rank``: two
+        int64 permutations of ``[0, num_nodes)`` on ``device``."""
+        ...
+
+    def state_dict(self) -> dict:
+        ...
+
+    def load_state_dict(self, sd: dict) -> None:
+        ...
+
+
+class SeededPermutations:
+    """``torch.randperm`` from a generator seeded from ``(seed, round, rank)``.
+
+    Each draw depends on its three numbers alone (a BLAKE2 digest of them is
+    the generator's seed), so the source keeps no position: a resume, on any
+    number of ranks, draws what an uninterrupted run draws.
+    """
+
+    def __init__(self, seed: int, device: str | torch.device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def _generator(self, round: int, rank: int) -> torch.Generator:
+        key = f"{self.seed}:{int(round)}:{int(rank)}".encode()
+        mixed = int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(), "little")
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(mixed >> 1)  # below 2**63
+        return gen
+
+    def draw_at(self, num_nodes, device, round, rank):
+        gen = self._generator(round, rank)
+        h = torch.randperm(num_nodes, generator=gen, device=self.device)
+        tie = torch.randperm(num_nodes, generator=gen, device=self.device)
+        return h.to(device), tie.to(device)
+
+    def state_dict(self) -> dict:
+        return {"kind": "seeded", "seed": self.seed, "device_type": self.device.type}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Checks that the saved run drew as this source draws: the same kind,
+        seed and device type (a CUDA generator's stream is not a CPU one's)."""
+        want = self.state_dict()
+        if {k: sd.get(k) for k in want} != want:
+            raise ValueError(f"SeededPermutations {want} cannot continue a run that "
+                             f"drew from {sd}")
+
+
 def node_shingles(src: torch.Tensor, dst: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
     """Per-subnode ``min(h(u), min_{(u,v)∈E} h(v))`` for the bijection ``h``."""
@@ -125,3 +190,62 @@ def build_groups(src, dst, state: SummaryState, perms: PermutationSource,
     h, tie = perms.draw(num_nodes, state.node2super.device)
     sh = supernode_shingles(src, dst, state, h)
     return chunk_groups(sh, state.size, tie, group_size)
+
+
+def chunk_groups_lean(shingle: torch.Tensor, group_size: int) -> torch.Tensor:
+    """The 2-key variant of :func:`chunk_groups`: sort by (shingle, id).
+
+    The shingles must already carry the dead sentinel ``V`` (what
+    :func:`supernode_shingles` and :func:`local_supernode_shingles` give), so
+    the dead key is redundant; id order breaks ties, which a stable sort of
+    the shingles keeps.
+    """
+    num_nodes = shingle.shape[0]
+    order = torch.sort(shingle, stable=True).indices
+    pad = (-num_nodes) % group_size
+    if pad:
+        order = torch.cat([order, torch.full((pad,), -1, dtype=torch.int64,
+                                             device=order.device)])
+    return order.reshape(-1, group_size)
+
+
+def build_groups_from_pairs(plo: torch.Tensor, phi: torch.Tensor, pvalid: torch.Tensor,
+                            size: torch.Tensor, h: torch.Tensor, tie: torch.Tensor,
+                            group_size: int) -> torch.Tensor:
+    """Candidate groups from *supergraph-level* shingles (the hash-owner path).
+
+    An owner rank holds the whole superedge adjacency of its supernodes, so
+    ``f(A) = min(h(A), min_{{A,B}∈P} h(B))`` is exact there. ``size`` is
+    zero for supernodes the rank does not own, which sorts them last.
+    """
+    num_nodes = size.shape[0]
+    ok = pvalid & (plo != phi)
+    f = torch.cat([h, h.new_full((1,), num_nodes)])  # slot V: the sentinel
+    sent = torch.full_like(plo, num_nodes)
+    f.scatter_reduce_(0, torch.where(ok, plo, sent),
+                      torch.where(ok, h[torch.clamp(phi, max=num_nodes - 1)], sent),
+                      reduce="amin", include_self=True)
+    f.scatter_reduce_(0, torch.where(ok, phi, sent),
+                      torch.where(ok, h[torch.clamp(plo, max=num_nodes - 1)], sent),
+                      reduce="amin", include_self=True)
+    return chunk_groups(f[:num_nodes], size, tie, group_size)
+
+
+def local_supernode_shingles(src_l: torch.Tensor, dst_l: torch.Tensor,
+                             node2super: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Per-supernode min-hash from one rank's edge shard (``-1`` rows are
+    padding). The minimum over ranks (``all_reduce(MIN)``) is
+    :func:`supernode_shingles` of the whole edge list; dead ids keep ``V``."""
+    num_nodes = h.shape[0]
+    pad = src_l < 0
+    s_safe = torch.clamp(src_l, min=0)
+    d_safe = torch.clamp(dst_l, min=0)
+    sent = torch.full_like(src_l, num_nodes)
+    f = torch.cat([h, h.new_full((1,), num_nodes)])  # closed neighborhood; slot V
+    f.scatter_reduce_(0, torch.where(pad, sent, s_safe),
+                      torch.where(pad, sent, h[d_safe]), reduce="amin", include_self=True)
+    f.scatter_reduce_(0, torch.where(pad, sent, d_safe),
+                      torch.where(pad, sent, h[s_safe]), reduce="amin", include_self=True)
+    out = torch.full((num_nodes,), num_nodes, dtype=torch.int64, device=h.device)
+    return out.scatter_reduce_(0, node2super, f[:num_nodes], reduce="amin",
+                               include_self=True)

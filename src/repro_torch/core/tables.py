@@ -1,6 +1,7 @@
 """Per-group neighbor tables: the operands of the merge-gain kernel.
 
 Port of ``repro/core/tables.py`` (``GroupTables``, ``build_neighbor_tables``,
+``build_neighbor_tables_compact``, ``supernode_total_costs_compact``,
 ``build_group_tables``, ``assemble_group_tables``). For every candidate group
 of ``C`` supernodes, the distinct neighbors of all members are given up to
 ``U`` columns, so member ``i``'s neighbor multiset is a row ``m[i]`` and a
@@ -18,11 +19,13 @@ The reference's ``.at[...].set/min/add(mode="drop")`` scatters become
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core import costs
 from repro_torch.core.types import PairTable, SummaryState
+from repro_torch.kernels import ops
 from repro_torch.utils import boundaries_from_keys, rank_in_segment
 
 F32 = torch.float32
@@ -50,7 +53,6 @@ def build_neighbor_tables(pt: PairTable, num_nodes: int, max_neighbors: int
     float32[V])`` with ``nbr_id == V`` marking empty slots.
     """
     v, d = num_nodes, max_neighbors
-    e = pt.capacity
     nonself = pt.valid & (pt.lo != pt.hi)
     # two directed entries per undirected pair
     owner = torch.cat([pt.lo, pt.hi])
@@ -61,9 +63,10 @@ def build_neighbor_tables(pt: PairTable, num_nodes: int, max_neighbors: int
     neg_cnt = torch.where(val, -cnt.to(torch.int64), 0)
     # The order of (owner, -cnt) decides which neighbors survive the top-D
     # cut, and among equal counts ties keep concatenation order (every hub
-    # loses some). One composite int64 key — cnt is an exact integer ≤ E —
-    # under a *stable* sort reproduces the reference's order exactly.
-    key = owner_k * (e + 1) + (neg_cnt + e)
+    # loses some). One composite int64 key — cnt is an exact integer, at
+    # most cmax — under a *stable* sort reproduces the reference's order.
+    cmax = cnt.max().to(torch.int64)
+    key = owner_k * (cmax + 1) + (neg_cnt + cmax)
     order = torch.sort(key, stable=True).indices
     owner_s, other_s, cnt_s, val_s = owner_k[order], other[order], cnt[order], val[order]
     rank = rank_in_segment(boundaries_from_keys(owner_s))
@@ -82,6 +85,78 @@ def build_neighbor_tables(pt: PairTable, num_nodes: int, max_neighbors: int
     return nbr_id.reshape(v, d), nbr_cnt.reshape(v, d), self_cnt
 
 
+def build_neighbor_tables_compact(plo, phi, cnt, valid, slot_of: torch.Tensor,
+                                  n_rows: int, num_nodes: int, max_neighbors: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-``D`` neighbor tables of the rows one rank owns (the compact
+    grouping): ``[n_rows, D]`` instead of ``[V, D]``, rows mapped through
+    ``slot_of`` (``int64[V]``, -1 = not owned here). The pair rows must be
+    in range (``plo``/``phi`` in ``[0, V)``, invalid rows masked by
+    ``valid``). Returns ``(nbr_id int64[n_rows, D], nbr_cnt float32[n_rows,
+    D], self_cnt float32[n_rows])``; ``nbr_id == V`` marks an empty slot.
+    """
+    v, d = num_nodes, max_neighbors
+    nonself = valid & (plo != phi)
+    owner = torch.cat([plo, phi])
+    other = torch.cat([phi, plo])
+    cnt2 = torch.cat([cnt, cnt])
+    row = slot_of[owner]
+    val = torch.cat([nonself, nonself]) & (row >= 0)
+    row_k = torch.where(val, row, n_rows)  # invalid entries last
+    neg_cnt = torch.where(val, -cnt2.to(torch.int64), 0)
+    # (row, -cnt) as one int64 key under a stable sort: the reference's order
+    cmax = cnt2.max().to(torch.int64)
+    key = row_k * (cmax + 1) + (neg_cnt + cmax)
+    order = torch.sort(key, stable=True).indices
+    row_s, other_s, cnt_s, val_s = row_k[order], other[order], cnt2[order], val[order]
+    rank = rank_in_segment(boundaries_from_keys(row_s))
+    keep = (rank < d) & val_s
+    flat = torch.where(keep, row_s * d + rank, n_rows * d)  # sentinel slot
+    nbr_id = torch.full((n_rows * d + 1,), v, dtype=torch.int64, device=plo.device)
+    nbr_id = nbr_id.scatter_(0, flat, other_s)[:-1]
+    nbr_cnt = torch.zeros(n_rows * d + 1, dtype=F32, device=plo.device)
+    nbr_cnt = nbr_cnt.scatter_(0, flat, cnt_s)[:-1]
+
+    # at most one self pair a row: a scatter, as in build_neighbor_tables
+    self_row = slot_of[plo]
+    ok_self = valid & (plo == phi) & (self_row >= 0)
+    self_cnt = torch.zeros(n_rows + 1, dtype=F32, device=plo.device).scatter_(
+        0, torch.where(ok_self, self_row, n_rows), cnt)[:-1]
+    return nbr_id.reshape(n_rows, d), nbr_cnt.reshape(n_rows, d), self_cnt
+
+
+def supernode_total_costs_compact(plo, phi, cnt, valid, slot_of: torch.Tensor,
+                                  n_rows: int, num_nodes: int, sizes: torch.Tensor,
+                                  scal: torch.Tensor, num_edges: int,
+                                  backend: str | None = None) -> torch.Tensor:
+    """``Cost*_A(S)`` per owned row from the rank's pair records, float32[n_rows].
+
+    The per-pair cost is the pair-cost kernel (``ops.pair_cost``), where the
+    reference computes ``pair_cost_star`` with jnp (``tables.py:135``);
+    ``scal = (cbar, log2v)``. As in ``costs.supernode_total_costs``, the
+    totals must not depend on the order of the adds: on the CPU they take
+    the reference's float32 chain (every ``lo`` add in row order, then every
+    ``hi`` add), on the card :func:`~repro_torch.core.costs.exact_index_sum`.
+    ``num_edges`` (the global |E|) bounds every total by 2|E|log₂V.
+    """
+    zero = torch.zeros((), dtype=F32, device=cnt.device)
+    na = sizes[plo].to(F32)
+    nb = sizes[phi].to(F32)
+    pi = torch.where(plo == phi, na * (na - 1.0) * 0.5, na * nb)
+    cost = torch.where(valid, ops.pair_cost(cnt, pi, scal, backend=backend), zero)
+    row_lo = torch.where(valid, slot_of[plo], -1)
+    row_hi = torch.where(valid & (plo != phi), slot_of[phi], -1)
+    idx = tuple(torch.where(r >= 0, r, n_rows) for r in (row_lo, row_hi))  # sentinel
+    vals = tuple(torch.where(r >= 0, cost, zero) for r in (row_lo, row_hi))
+    if cnt.is_cuda:
+        bound = 2.0 * max(num_edges, 1) * math.log2(max(num_nodes, 2))
+        return costs.exact_index_sum(n_rows + 1, idx, vals, bound)[:-1]
+    out = torch.zeros(n_rows + 1, dtype=F32, device=cnt.device)
+    for i, x in zip(idx, vals):
+        out.index_add_(0, i, x)
+    return out[:-1]
+
+
 def build_group_tables(pt: PairTable, state: SummaryState, groups: torch.Tensor,
                        max_neighbors: int, union_size: int, scal: torch.Tensor,
                        num_nodes: int, backend: str | None = None) -> GroupTables:
@@ -98,8 +173,12 @@ def build_group_tables(pt: PairTable, state: SummaryState, groups: torch.Tensor,
 
 def assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, sizes,
                           groups: torch.Tensor, union_size: int,
-                          num_nodes: int) -> GroupTables:
-    """Union-space assembly from ``[V, D]`` tables (row = supernode id)."""
+                          num_nodes: int, *, row_of_member: torch.Tensor | None = None
+                          ) -> GroupTables:
+    """Union-space assembly, shared by the ``[V, D]`` tables (row = supernode
+    id, ``row_of_member`` None) and the compact ``[n_rows, D]`` tables of one
+    rank (``row_of_member``: global id → table row, -1 = not a row here;
+    members without a row count as dead)."""
     v = num_nodes
     g_cnt, c = groups.shape
     u = union_size
@@ -112,11 +191,18 @@ def assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, sizes,
     midx = torch.where(mvalid, members, 0)
     n = torch.where(mvalid, sizes[midx], 0).to(F32)
     alive = n > 0
-    s = torch.where(alive, self_cnt[midx], zero)
-    t = torch.where(alive, t_all[midx], zero)
+    if row_of_member is None:
+        rows = midx
+    else:
+        row = row_of_member[midx]
+        rows = torch.clamp(row, 0, nbr_id.shape[0] - 1)
+        alive = alive & (row >= 0)
+        n = torch.where(alive, n, zero)
+    s = torch.where(alive, self_cnt[rows], zero)
+    t = torch.where(alive, t_all[rows], zero)
 
-    tab_id = torch.where(alive[..., None], nbr_id[midx], v)  # [G, C, D]
-    tab_cnt = torch.where(alive[..., None], nbr_cnt[midx], zero)
+    tab_id = torch.where(alive[..., None], nbr_id[rows], v)  # [G, C, D]
+    tab_cnt = torch.where(alive[..., None], nbr_cnt[rows], zero)
 
     # ---- union space: batched sort along the last axis ------------------
     flat_id = tab_id.reshape(g_cnt, c * d)

@@ -34,7 +34,7 @@
 //     ci == cj < U;
 //   * the reference sums a row 32 columns at a time, in order, then adds
 //     the 32-column partials in order (XLA:CPU; the plain version takes this
-//     order on a CPU tensor, f32math.sum_last), and the columns
+//     order on every device, f32math.sum_last), and the columns
 //     whose bit is clear add exact zeros. So the work unit is one (row or
 //     pair, 32-column word): a thread sums its set bits in ascending order
 //     (walking them with __ffs), and a last pass adds each row's or pair's

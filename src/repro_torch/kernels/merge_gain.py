@@ -10,7 +10,7 @@ of each unordered pair ``i < j`` (the union of the two rows' bitmaps); it
 sorts the units by their set bits, and a thread sums the entropy terms of
 one unit's set bits only, ascending, before the word partials are added in
 order: the reference's order of additions, which the plain version takes
-on a CPU tensor (``f32math.sum_last``). The
+on every device (``f32math.sum_last``). The
 source's header says what bounds the function on the card and what the
 design does about it. It is built by
 :mod:`repro_torch.kernels.build` and bound with ctypes. The plain version is

@@ -6,10 +6,11 @@ Port of ``repro/kernels/ref.py`` (``entropy_bits_ref``, ``pair_cost_ref``,
 sums. They are what a CPU tensor runs (:mod:`repro_torch.kernels.ops`) and
 what the CUDA and Triton kernels are held against on the card.
 
-On a CPU tensor, ``log2`` and the sums over U are taken as the reference's
-XLA:CPU takes them (:mod:`repro_torch.utils.f32math`), so the gains agree
-with the reference's to the last bit and its near-ties break the same way;
-on a card's tensor they are ``torch.log2`` and ``torch.sum``.
+The sums over U are added in the reference's XLA:CPU order on every
+device, and on a CPU tensor ``log2`` is taken as XLA:CPU takes it
+(:mod:`repro_torch.utils.f32math`), so there the gains agree with the
+reference's to the last bit and its near-ties break the same way; on a
+card's tensor ``log2`` is ``torch.log2``.
 
 ``merge_gain_ref`` materialises a ``[G, C, C, U]`` tensor: at skitter size
 (G = 65,536, C = 32, U = 128) that is about 34 GB, so on the card it is only

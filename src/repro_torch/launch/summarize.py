@@ -1,11 +1,15 @@
-"""Single-device graph-summarization driver of the port.
+"""Graph-summarization launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.summarize --dataset dblp \
         --scale 0.05 --k-frac 0.3 --T 20 [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.summarize --edge-list g.txt.gz \
         --checkpoint-dir ck/ [--resume]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.summarize \
+        --distributed --device cpu --dataset ego-facebook --scale 0.05
 
-Port of the local mode of ``repro/launch/summarize.py``: loads the graph
+Port of ``repro/launch/summarize.py``'s local and ``--distributed`` modes
+(multi-host bootstrapping, ``--coordinator``/``--num-processes``, is not
+ported). The local mode loads the graph
 through :func:`repro_torch.graphs.load_graph` (real file, then its CSR
 cache, then the registry's synthetic stand-in), runs SSumM and prints one
 JSON object with the reference's keys that this port fills (Eq. 2/4
@@ -19,8 +23,21 @@ With ``--checkpoint-dir`` the run saves its state at chunk boundaries
 (async, atomic, keep-N); SIGTERM or SIGINT then saves at the next boundary,
 prints ``{"preempted": true, ...}`` and exits 75, and the same command with
 ``--resume`` finishes bit-identically to a run that never stopped. A
-straggler monitor is always on and reports slow chunks on stderr. The
-distributed mode is not ported yet.
+straggler monitor is always on and reports slow chunks on stderr.
+
+``--distributed`` runs the edge-sharded backend
+(:mod:`repro_torch.core.distributed`, compact grouping, capacity factor 32,
+lean sort) over ``torch.distributed``: NCCL with ``--device cuda`` (one card
+a rank, ``LOCAL_RANK``), gloo with ``--device cpu``. Under ``torchrun`` the
+ranks come from the environment; without it the launcher makes a world of
+one. Each rank feeds only its own edge shard (from the CSR cache when the
+graph has one, :mod:`repro_torch.graphs.feed`), and rank 0 prints the
+digests and the JSON, with the reference's distributed keys (``mode``,
+``size_bits_before_sparsify``, ``superedges_dropped``, ``feed_*``,
+``sparsify_wall_s``, ...) and the port's (``history``, ``bucket_cap``,
+``bucket_bytes``, ``kernel_launches``). A resume may run on another number
+of ranks: the state is loaded whole on every rank and the shards are fed
+again at the new count.
 """
 
 from __future__ import annotations
@@ -29,16 +46,20 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import resource
 import sys
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core import SummaryConfig, summarize
-from repro_torch.core.engine import EngineCheckpointer
-from repro_torch.core.types import resolve_device
+from repro_torch.core.distributed import bucket_bytes, make_distributed_backend
+from repro_torch.core.engine import EngineCheckpointer, SummaryEngine
+from repro_torch.core.types import make_graph, resolve_device
 from repro_torch.graphs import DATASETS, load_graph
+from repro_torch.graphs.feed import EdgeShards, shard_edges, shard_edges_from_cache
 from repro_torch.kernels import ops
 from repro_torch.runtime import (
     RESUMABLE_EXIT,
@@ -57,6 +78,155 @@ def digest(a: np.ndarray) -> str:
 def peak_rss_mb() -> float:
     """Process high-water RSS in MB (``ru_maxrss`` is KB on Linux)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def init_distributed(device: torch.device) -> tuple[int, int, torch.device]:
+    """Join (or make) the default process group; returns ``(rank, world,
+    device)`` with the rank's card on CUDA.
+
+    Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set) the group comes from the
+    environment; otherwise a world of one with an in-process store. An
+    already initialized group is used as it is. NCCL on the card, gloo on
+    the CPU; CUDA without NCCL raises.
+    """
+    dist = torch.distributed
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("--distributed --device cuda needs NCCL, and this "
+                               "PyTorch has no NCCL; use --device cpu (gloo)")
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+    return dist.get_rank(), dist.get_world_size(), device
+
+
+def build_distributed_pipeline(cfg: SummaryConfig, num_nodes: int, num_edges: int,
+                               device, perms=None):
+    """The launcher's backend: compact grouping, capacity factor 32, lean sort."""
+    return make_distributed_backend(cfg, num_nodes, num_edges, grouping="compact",
+                                    capacity_factor=32.0, lean_sort=True, device=device,
+                                    perms=perms)
+
+
+def run_distributed(shards: EdgeShards, v: int, cfg: SummaryConfig, device,
+                    pipeline=None, *, checkpointer=None, monitor=None,
+                    resume: bool = False) -> tuple:
+    """Merge rounds and the final sparsification over this rank's shard.
+
+    Returns ``(state, stats, size_g, run)``: ``stats`` holds the last round's
+    stats, the post-sparsification metrics and ``sparsify_wall_s``, the same
+    on every rank.
+    """
+    if shards.num_nodes is not None and shards.num_nodes != v:
+        raise ValueError(f"shards came from a cache with |V|={shards.num_nodes} but "
+                         f"run_distributed was called with v={v}")
+    if pipeline is None:
+        pipeline = build_distributed_pipeline(cfg, v, shards.num_edges, device)
+    backend = pipeline.bind(shards.src, shards.dst)
+    run = SummaryEngine(backend).run(collect_history=True, checkpointer=checkpointer,
+                                     monitor=monitor, resume=resume)
+    out = {k: float(x) for k, x in (run.last_stats or {}).items()}
+    fin = run.finalize["stats"]
+    vals = torch.stack([fin[k].to(torch.float32) for k in fin]).cpu().numpy()
+    out.update({k: float(x) for k, x in zip(fin, vals)})
+    out["sparsify_wall_s"] = run.sparsify_wall_s
+    return run.state, out, run.input_size_bits, run
+
+
+def _run_local(args, g, cfg, device, ckp, monitor) -> tuple[dict, str]:
+    """The local mode's result keys and digests line."""
+    src, dst, v = np.asarray(g.src), np.asarray(g.dst), g.num_nodes
+    before = ops.launch_counts()
+    t0 = time.time()
+    res = summarize(src, dst, v, cfg, device=device, checkpointer=ckp, monitor=monitor,
+                    resume=args.resume)
+    after = ops.launch_counts()
+    result = {
+        "dataset": args.edge_list or args.dataset, "V": v, "E": len(src),
+        "mode": "local",
+        "device": str(device),
+        "size_bits": res.size_bits,
+        "relative_size": res.size_bits / res.input_size_bits,
+        "re1": res.re1, "re2": res.re2,
+        "num_supernodes": res.num_supernodes,
+        "num_superedges": res.num_superedges,
+        "iterations": res.iterations_run,
+        "chunk_wall_s": res.chunk_wall_s,
+        "straggler_events": [dataclasses.asdict(ev) for ev in res.straggler_events],
+        "resumed_from": res.resumed_from,
+        "checkpoint_saves": res.checkpoint_saves,
+        "checkpoint_snapshot_wall_s": res.checkpoint_snapshot_wall_s,
+        "wall_s": time.time() - t0,
+        "kernel_launches": {k: after[k] - before[k] for k in after},
+    }
+    digests = (f"digests node2super={digest(res.node2super)} "
+               f"super_size={digest(res.super_size)} edge_w={digest(res.edge_w)}")
+    return result, digests
+
+
+def _run_distributed(args, g, cfg, device, ckp, monitor) -> tuple[dict, str]:
+    """``--distributed``: the result keys and digests line (the same on
+    every rank)."""
+    rank, world, device = init_distributed(device)
+    src, dst, v = g.src, g.dst, g.num_nodes
+    t_feed = time.time()
+    if g.cache_dir is not None:
+        shards = shard_edges_from_cache(g.cache_dir, rank, world, device)
+    else:
+        graph, _ = make_graph(src, dst, v, "cpu")
+        shards = shard_edges(graph.src.numpy(), graph.dst.numpy(), rank, world, device)
+    feed_wall_s = time.time() - t_feed
+    pipeline = build_distributed_pipeline(cfg, v, shards.num_edges, device)
+    before = ops.launch_counts()
+    t0 = time.time()
+    state, stats, size_g, run = run_distributed(
+        shards, v, cfg, device, pipeline, checkpointer=ckp, monitor=monitor,
+        resume=args.resume)
+    after = ops.launch_counts()
+    fs = shards.stats
+    result = {
+        "dataset": args.edge_list or args.dataset, "V": v, "E": len(src),
+        "mode": f"distributed{{'ranks': {world}}}",
+        "device": str(device),
+        "backend": torch.distributed.get_backend(),
+        "size_bits": stats["size_bits"],
+        "size_bits_before_sparsify": stats["size_bits_before"],
+        "relative_size": stats["size_bits"] / size_g,
+        "re1": stats["re1"], "re2": stats["re2"],
+        "num_supernodes": stats["num_supernodes"],
+        "num_superedges": stats["num_superedges"],
+        "superedges_dropped": stats["dropped"],
+        "iterations": run.iterations_run,
+        "sparsify_wall_s": stats["sparsify_wall_s"],
+        "feed_wall_s": feed_wall_s,
+        "feed_path": fs.path,
+        "feed_shard_rows": fs.shard_rows,
+        "feed_shard_bytes": fs.shard_bytes,
+        "feed_peak_staging_bytes": fs.peak_staging_bytes,
+        "feed_bytes_copied": fs.bytes_copied,
+        "feed_local_shards": fs.local_shards,
+        "process_count": world,
+        "process_index": rank,
+        "bucket_cap": pipeline.last_cap,
+        "bucket_bytes": bucket_bytes(pipeline.last_cap, world),
+        "history": run.history,
+        "chunk_wall_s": run.chunk_wall_s,
+        "straggler_events": [dataclasses.asdict(ev) for ev in run.straggler_events],
+        "resumed_from": run.resumed_from,
+        "checkpoint_saves": run.checkpoint_saves,
+        "checkpoint_snapshot_wall_s": run.checkpoint_snapshot_wall_s,
+        "wall_s": time.time() - t0,
+        "kernel_launches": {k: after[k] - before[k] for k in after},
+    }
+    digests = (f"digests node2super={digest(state.node2super.to(torch.int32).cpu().numpy())} "
+               f"super_size={digest(state.size.to(torch.int32).cpu().numpy())}")
+    return result, digests
 
 
 def main(argv=None) -> dict:
@@ -94,16 +264,32 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the summary runs (default: the card)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="edge-sharded over torch.distributed: the ranks of torchrun, "
+                         "or a world of one (NCCL on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     device = resolve_device(args.device)  # raises before any work without CUDA
 
+    # a group this call makes, it also ends; one the caller made stays
+    own_group = args.distributed and not torch.distributed.is_initialized()
     t_load = time.time()
-    g = load_graph(args.edge_list or args.dataset, chunk_edges=args.chunk_edges,
-                   refresh=args.reingest, scale=args.scale, seed=args.seed)
+    load = lambda: load_graph(args.edge_list or args.dataset,  # noqa: E731
+                              chunk_edges=args.chunk_edges, refresh=args.reingest,
+                              scale=args.scale, seed=args.seed)
+    rank = 0
+    if args.distributed:
+        # rank 0 ingests a new file into its cache; the others then find it
+        rank = init_distributed(device)[0]
+        if rank == 0:
+            g = load()
+        torch.distributed.barrier()
+        if rank != 0:
+            g = load()
+    else:
+        g = load()
     load_wall_s = time.time() - t_load
-    src, dst, v = np.asarray(g.src), np.asarray(g.dst), g.num_nodes
     cfg_kw = {} if args.driver_chunk is None else {"driver_chunk": args.driver_chunk}
     cfg = SummaryConfig(T=args.T, k_frac=args.k_frac, group_size=args.group_size,
                         seed=args.seed, **cfg_kw)
@@ -129,37 +315,25 @@ def main(argv=None) -> dict:
         "ingest_self_loops_dropped": g.stats.self_loops_dropped,
     }
 
-    before = ops.launch_counts()
     t0 = time.time()
     try:
-        res = summarize(src, dst, v, cfg, device=device, checkpointer=ckp,
-                        monitor=monitor, resume=args.resume)
+        if args.distributed:
+            result, digests = _run_distributed(args, g, cfg, device, ckp, monitor)
+        else:
+            result, digests = _run_local(args, g, cfg, device, ckp, monitor)
     except Preempted as p:
         # save-and-exit: the committed checkpoint is the resume point;
         # RESUMABLE_EXIT tells the supervisor "rerun me with --resume"
-        print(json.dumps(dict(ingest, preempted=True, checkpoint_step=p.step,
-                              checkpoint_dir=args.checkpoint_dir,
-                              wall_s=time.time() - t0), indent=1), flush=True)
+        if rank == 0:
+            print(json.dumps(dict(ingest, preempted=True, checkpoint_step=p.step,
+                                  checkpoint_dir=args.checkpoint_dir,
+                                  wall_s=time.time() - t0), indent=1), flush=True)
         raise SystemExit(RESUMABLE_EXIT)
-    after = ops.launch_counts()
-    result = {
-        "dataset": args.edge_list or args.dataset, "V": v, "E": len(src),
-        "mode": "local",
-        "device": str(device),
-        "size_bits": res.size_bits,
-        "relative_size": res.size_bits / res.input_size_bits,
-        "re1": res.re1, "re2": res.re2,
-        "num_supernodes": res.num_supernodes,
-        "num_superedges": res.num_superedges,
-        "iterations": res.iterations_run,
-        "chunk_wall_s": res.chunk_wall_s,
-        "straggler_events": [dataclasses.asdict(ev) for ev in res.straggler_events],
-        "resumed_from": res.resumed_from,
-        "checkpoint_saves": res.checkpoint_saves,
-        "checkpoint_snapshot_wall_s": res.checkpoint_snapshot_wall_s,
-        "wall_s": time.time() - t0,
-        "kernel_launches": {k: after[k] - before[k] for k in after},
-    }
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+    if rank != 0:  # rank 0 prints for every rank
+        return {}
     result.update(ingest)
     if ckp is not None:
         stats = ckp.manager.save_stats.values()
@@ -167,8 +341,7 @@ def main(argv=None) -> dict:
         result["checkpoint_write_wall_s"] = sum(s["write_wall_s"] or 0.0 for s in stats)
         result["checkpoint_bytes"] = max((s["bytes"] or 0 for s in stats), default=0)
     result["peak_rss_mb"] = peak_rss_mb()
-    print(f"digests node2super={digest(res.node2super)} "
-          f"super_size={digest(res.super_size)} edge_w={digest(res.edge_w)}")
+    print(digests)
     print(json.dumps(result, indent=1), flush=True)
     if args.rss_budget_mb is not None and result["peak_rss_mb"] > args.rss_budget_mb:
         raise SystemExit(f"peak RSS {result['peak_rss_mb']:.1f} MB exceeds the "

@@ -11,9 +11,9 @@ leaving at worst an ignored ``.tmp-`` directory behind.
 Drivers that committed a checkpoint before stopping raise :class:`Preempted`
 and exit with :data:`RESUMABLE_EXIT` (BSD ``EX_TEMPFAIL``): a nonzero status
 that a supervisor tells apart from a crash, meaning "rerun the same command
-with ``--resume``". The elastic mesh planning of the reference
-(``plan_mesh``, ``make_mesh_from_plan``) comes with the port's distributed
-backend.
+with ``--resume``". The port keeps no mesh plan: a resume on another
+number of ranks feeds the edge shards again at that count
+(:mod:`repro_torch.graphs.feed`) and loads the whole state on every rank.
 """
 
 from __future__ import annotations
@@ -71,6 +71,11 @@ class PreemptionGuard:
     @property
     def preempted(self) -> bool:
         return self._requested
+
+    @property
+    def signal_count(self) -> int:
+        """Signals received since the guard was installed."""
+        return self._count
 
     def restore(self) -> None:
         """Put back the handlers that were installed before the guard."""

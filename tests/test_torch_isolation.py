@@ -46,7 +46,8 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.core.convert", "repro_torch.graphs.synthetic",
               "repro_torch.graphs.io", "repro_torch.core.queries",
               "repro_torch.core.query_engine", "repro_torch.launch.query_serve",
-              "repro_torch.kernels.segment_sum"):
+              "repro_torch.kernels.segment_sum", "repro_torch.core.distributed",
+              "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.graphs.feed"):
         assert m in res["modules"]
 
 
