@@ -54,12 +54,22 @@ card and CPU runs. Phases, one line each or a few:
      shrinking, each kernel launched once a round; both kernels held against
      their plain versions on round 1's compact tables (the merge gain's and
      the pair cost's new call sites); a small case on the card against 2
-     gloo ranks on the CPU.
+     gloo ranks on the CPU;
+  10. the multi-rank query tiers: the launcher's ``--distributed --tier
+     replicated`` and ``--tier partitioned`` at a world of one over NCCL on
+     phase 6's file with phase 7's stream, each giving phase 7's digest and
+     launching each kernel of the path; on phase 4's summary the partition
+     tables at P = 4 and 8 cover every rank's references, and both tiers
+     with P = 4 ranks run one after another in this process equal the
+     single-device engine bit for bit (PageRank blocks and steps, the
+     triangle total, a 64-slot batch of each kind), each rank's resident row
+     bytes below the whole CSR's; segment_sum over each rank's rows equals
+     those rows of one launch over all.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
-numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7 and
-9), and as the last line
+numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9
+and 10), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -331,6 +341,46 @@ def check_gain_shape(got) -> None:
     red_t = red.transpose(1, 2)
     if not bool(((red - red_t).abs() <= ATOL_RED + RTOL * red_t.abs()).all()):
         raise AssertionError("red is not symmetric")
+
+
+def partition_coverage(bs, t, p: int) -> list[str]:
+    """What is wrong with partition tables ``t`` of the block summary ``bs``
+    at ``p`` ranks: the reference's halo-coverage test
+    (``tests/test_partition_tables.py::test_halo_coverage``) over the CSR
+    entries, and each entry's ``loc_share``/``loc_row`` resolving to a row
+    of its own column."""
+    indptr = bs.indptr.cpu().numpy()
+    cols = bs.cols.cpu().numpy()
+    owner, errs = t.owner, []
+    s_own, h = t.own_gids.shape[1], t.halo_gids.shape[1]
+    ht, dm = t.row_halo_gids.shape[1], t.dense_slots.shape[1]
+    tag = f"P={p}, dense_row_nnz={t.dense_row_nnz}"
+    for q in range(p):
+        own = t.own_gids[q][t.own_gids[q] >= 0]
+        if not np.array_equal(own, np.flatnonzero(owner == q)):
+            errs.append(f"{tag}: rank {q}'s rows are not the blocks it owns")
+        lens = indptr[own + 1] - indptr[own]
+        ent = (np.repeat(indptr[own], lens) + np.arange(lens.sum())
+               - np.repeat(np.cumsum(lens) - lens, lens))
+        ref = cols[ent]
+        refs = np.unique(ref)
+        remote = refs[owner[refs] != q]
+        hl = t.halo_gids[q][t.halo_gids[q] >= 0]
+        dense = np.isin(remote, t.dense_gids)
+        share_gid = np.concatenate([t.own_gids[q], t.halo_gids[q], [-1]])
+        row_gid = np.concatenate([t.own_gids[q], t.row_halo_gids[q], t.dense_slots.reshape(-1),
+                                  [-1]])
+        ok = (np.array_equal(hl, remote)
+              and np.array_equal(t.halo_src_dev[q, :hl.size], owner[hl])
+              and np.array_equal(t.halo_src_pos[q, :hl.size], t.block_pos[hl])
+              and np.array_equal(t.row_halo_gids[q][t.row_halo_gids[q] >= 0], remote[~dense])
+              and t.loc_share[q].size == ent.size and t.loc_row[q].size == ent.size
+              and (t.loc_share[q] < s_own + h).all() and (t.loc_row[q] < s_own + ht + p * dm).all()
+              and np.array_equal(share_gid[t.loc_share[q]], ref)
+              and np.array_equal(row_gid[t.loc_row[q]], ref))
+        if not ok:
+            errs.append(f"{tag}: rank {q}'s halo does not cover its rows' references")
+    return errs
 
 
 def fmt_ms(x) -> str:
@@ -895,6 +945,7 @@ def run(tmp: str) -> int:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         ctx["serve_counts"] = counts
+        ctx["serve_out"] = out
         log(f"served: {out['requests']} requests {out['queries']} in {SERVE_SLOTS} slots, "
             f"p50 {out['p50_latency_s'] * 1e3:.2f} ms, p99 {out['p99_latency_s'] * 1e3:.2f} ms, "
             f"QPS {out['qps']:.1f}; summarize {out['summarize_wall_s']:.2f} s "
@@ -1466,6 +1517,156 @@ def run(tmp: str) -> int:
             raise AssertionError("; ".join(errors))
 
     smoke.phase("9 edge-sharded", phase_distributed)
+
+    # ---- 10. the multi-rank query tiers --------------------------------------
+    def phase_query_tiers():
+        from repro_torch.core.query_engine import (KIND_NAMES, SET_KINDS,
+                                                   PartitionedQueryEngine, QueryEngine,
+                                                   RoutedQueryEngine, build_partition_tables,
+                                                   pack_set_counts)
+        from repro_torch.core.queries import row_entries
+        from repro_torch.dist import owner_hash
+        from repro_torch.kernels.segment_sum import segment_sum_cuda
+        from repro_torch.launch.query_serve import random_workload
+
+        card = nvidia_smi("name,power.limit")
+        errors = []
+        local_out = ctx["serve_out"]
+
+        # (a) the launcher's two tiers at a world of one over NCCL, phase 7's stream
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        for tier in ("replicated", "partitioned"):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.query_serve", "--edge-list",
+                 ctx["edge_list"], "--T", "20", "--k-frac", "0.3", "--requests",
+                 str(SERVE_REQUESTS), "--batch", str(SERVE_SLOTS), "--queries", ALL_KINDS,
+                 "--device", "cuda", "--distributed", "--tier", tier],
+                capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+            if proc.returncode != 0:
+                raise RuntimeError(f"--tier {tier} failed:\n{proc.stdout}\n{proc.stderr}")
+            out = json.loads(proc.stdout[proc.stdout.index("{\n"):])
+            counts = out["kernel_launches"]
+            log(f"[{card}] --distributed --tier {tier}: mode {out['mode']} ({out['backend']}), "
+                f"QPS {out['qps']:.1f}, p50 {out['p50_latency_s'] * 1e3:.2f} ms, p99 "
+                f"{out['p99_latency_s'] * 1e3:.2f} ms (phase 7: QPS {local_out['qps']:.1f}, "
+                f"p50 {local_out['p50_latency_s'] * 1e3:.2f} ms, p99 "
+                f"{local_out['p99_latency_s'] * 1e3:.2f} ms); engine build "
+                f"{out['engine_build_wall_s']:.3f} s (phase 7: "
+                f"{local_out['engine_build_wall_s']:.3f} s), its device peak "
+                f"{out['engine_build_peak_bytes']} bytes above what was held (phase 7: "
+                f"{local_out['engine_build_peak_bytes']}); owner counts {out['owner_counts']}"
+                + (f"; partition {out['partition_stats']}" if tier == "partitioned" else "")
+                + f"; digest {out['answers_digest']}; launches {counts}")
+            if out["answers_digest"] != local_out["answers_digest"]:
+                errors.append(f"--tier {tier}: digest {out['answers_digest']} != phase 7's "
+                              f"{local_out['answers_digest']}")
+            n = out["iterations"]
+            if (counts["merge_gain"] != n or counts["pair_cost"] != n
+                    or counts["segment_sum"] == 0 or counts["ordered_sum"] == 0):
+                errors.append(f"--tier {tier}: launches {counts} ({n} rounds)")
+            for k in counts:
+                smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
+                    f"query tier {tier}"] = counts[k]
+
+        # (b) P = 4 on phase 4's summary, every rank's row work in turn here
+        res = ctx["res"]
+        local = QueryEngine(res, device="cuda")
+        bs = local.bs
+        for p in (4, 8):
+            for dn in (None, 32):
+                t = build_partition_tables(bs, owner_hash(bs.ids, 0, p), p, dn)
+                errors += partition_coverage(bs, t, p)
+        kinds_all = [KIND_NAMES[k] for k in ALL_KINDS.split(",")]
+        reqs = random_workload(np.random.default_rng(0), ctx["v"], SERVE_SLOTS * len(kinds_all),
+                               kinds_all)
+        batches = {}
+        for name, k in KIND_NAMES.items():
+            batch = [r for r in reqs if r.kind == k][:SERVE_SLOTS]
+            kinds = np.full(len(batch), k, np.int32)
+            sets = (None, None, None)
+            if k in SET_KINDS:
+                sets = pack_set_counts(bs, kinds, [r.a for r in batch], [r.b for r in batch])
+            batches[name] = (kinds, np.array([r.u for r in batch]), np.array([r.v for r in batch]),
+                             *sets)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        pr_want, tri_want = local.pagerank_blocks(), local.triangle_density()
+        want = {k: local.answer_batch(*b) for k, b in batches.items()}
+        torch.cuda.synchronize()
+        local_counts = ops.launch_counts()
+        tier_counts = {}
+        for label, make in (
+                ("routed", lambda: RoutedQueryEngine(res, device="cuda", ranks=4)),
+                ("partitioned", lambda: PartitionedQueryEngine(res, device="cuda", ranks=4)),
+                ("partitioned, dense_row_nnz 32", lambda: PartitionedQueryEngine(
+                    res, device="cuda", ranks=4, dense_row_nnz=32))):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = make()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            build_peak = torch.cuda.max_memory_allocated() - held
+            pr = eng.pagerank_blocks()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tri = eng.triangle_density()
+            t3 = time.perf_counter()
+            same = {"PageRank blocks": torch.equal(pr, pr_want)
+                    and eng.pagerank_iterations == local.pagerank_iterations,
+                    "triangle total": tri == tri_want
+                    and eng.triangle_wedges == local.triangle_wedges}
+            same.update({k: np.array_equal(eng.answer_batch(*b), want[k])
+                         for k, b in batches.items()})
+            torch.cuda.synchronize()
+            tier_counts[label] = ops.launch_counts()
+            extra = ""
+            if hasattr(eng, "partition_stats"):
+                st = eng.partition_stats()
+                extra = (f"; build's device peak {build_peak} bytes above what was held, "
+                         f"for all 4 ranks; halo per rank {st['halo_counts']} (row halo max "
+                         f"{st['row_halo_max']}), dense rows {st['dense_rows']}, owner counts "
+                         f"{st['owner_counts']}, resident bytes per rank "
+                         f"{st['resident_bytes_per_device']} against "
+                         f"{st['replicated_row_bytes']} replicated")
+                if max(st["resident_bytes_per_device"]) >= st["replicated_row_bytes"]:
+                    errors.append(f"{label}: a rank holds as many row bytes as the whole CSR")
+            log(f"[{card}] P = 4 in one process, {label}: build {(t1 - t0) * 1e3:.1f} ms, "
+                f"PageRank {(t2 - t1) * 1e3:.1f} ms ({eng.pagerank_iterations} steps), "
+                f"triangles {(t3 - t2) * 1e3:.1f} ms ({eng.triangle_wedges} wedges); equal to "
+                f"the single-device engine's bits: {same}; launches "
+                f"{tier_counts[label]}{extra}")
+            if not all(same.values()):
+                errors.append(f"{label} at P = 4 differs from the single-device engine: {same}")
+            for k in ("segment_sum", "ordered_sum"):
+                if tier_counts[label][k] == 0:
+                    errors.append(f"{label} at P = 4 never launched {k}")
+            del eng
+        log(f"single-device engine on the same work: launches {local_counts}")
+        for k in ("segment_sum", "ordered_sum"):
+            smoke.kernels[k]["launches_by_path"]["query tiers, P = 4 in one process"] = sum(
+                c[k] for c in tier_counts.values())
+
+        # (c) the kernel over one rank's rows gives those rows of the full launch
+        share = torch.rand(bs.num_blocks, dtype=torch.float64, device=dev)
+        vals = bs.deg_w * share[bs.cols]
+        full = segment_sum_cuda(bs.indptr, vals, bs.long_rows)
+        owner = owner_hash(bs.ids, 0, 4)
+        for q in range(4):
+            rows = torch.nonzero(owner == q).squeeze(1)
+            sub, ent, _ = row_entries(bs.indptr, rows)
+            if not torch.equal(segment_sum_cuda(sub, vals[ent].contiguous()), full[rows]):
+                errors.append(f"segment_sum over rank {q}'s rows differs from the full launch")
+        log("segment_sum over each of 4 ranks' rows equals those rows of one launch over "
+            f"all {bs.num_blocks} rows: {not any('segment_sum over' in e for e in errors)}")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("10 query tiers", phase_query_tiers)
 
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")

@@ -89,16 +89,18 @@ DIST_STAT_KEYS = (
 class RankGroup:
     """The process group a backend runs over, with the reference's reductions.
 
-    ``torch.distributed``'s default group when it is initialized; a group of
-    one (every collective the identity) when it is not.
+    ``group`` (a ``torch.distributed`` process group), else the default group
+    when it is initialized; a group of one (every collective the identity)
+    when it is not.
     """
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, group=None):
         self.device = device
+        self.pg = group
         self.active = dist.is_available() and dist.is_initialized()
-        self.rank = dist.get_rank() if self.active else 0
-        self.size = dist.get_world_size() if self.active else 1
-        self.backend = dist.get_backend() if self.active else None
+        self.rank = dist.get_rank(group) if self.active else 0
+        self.size = dist.get_world_size(group) if self.active else 1
+        self.backend = dist.get_backend(group) if self.active else None
         if self.backend == "nccl" and device.type != "cuda":
             raise ValueError("an NCCL group needs the backend's tensors on CUDA; "
                              f"got device {device}")
@@ -113,7 +115,7 @@ class RankGroup:
             return x
         y = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
         dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
-                               "min": dist.ReduceOp.MIN}[op])
+                               "min": dist.ReduceOp.MIN}[op], group=self.pg)
         return y.to(x.dtype)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,7 +127,7 @@ class RankGroup:
         out = torch.empty((self.size * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, src)
+        gather(out, src, group=self.pg)
         return out.to(x.dtype)
 
     def all_to_all(self, buck: torch.Tensor) -> torch.Tensor:
@@ -134,7 +136,7 @@ class RankGroup:
         if self.size == 1:
             return buck
         out = torch.empty_like(buck)
-        dist.all_to_all_single(out, buck.contiguous())
+        dist.all_to_all_single(out, buck.contiguous(), group=self.pg)
         return out
 
 

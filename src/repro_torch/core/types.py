@@ -19,6 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.graphs.io import is_canonical
+
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """The run's device; a CUDA request without a card raises.
@@ -153,18 +155,21 @@ class SummaryResult:
 def make_graph(src, dst, num_nodes: int,
                device: str | torch.device = "cuda") -> tuple[Graph, int]:
     """Canonicalize an edge list (undirected, dedup, no self-loops, src<dst)
-    on the host and place it on ``device``."""
+    on the host and place it on ``device``. An edge list canonical already
+    (a graph cache's) is taken as it is, without the sort."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
-    lo = np.minimum(src, dst)
-    hi = np.maximum(src, dst)
-    keep = lo != hi
-    lo, hi = lo[keep], hi[keep]
-    key = lo * int(num_nodes) + hi
-    _, idx = np.unique(key, return_index=True)
+    if is_canonical(src, dst):
+        lo, hi = src, dst
+    else:
+        lo = np.minimum(src, dst)
+        hi = np.maximum(src, dst)
+        keep = lo != hi
+        lo, hi = lo[keep], hi[keep]
+        _, idx = np.unique(lo * int(num_nodes) + hi, return_index=True)
+        lo, hi = lo[idx], hi[idx]
     dev = resolve_device(device)
-    g = Graph(src=torch.as_tensor(lo[idx], device=dev),
-              dst=torch.as_tensor(hi[idx], device=dev))
+    g = Graph(src=torch.as_tensor(lo, device=dev), dst=torch.as_tensor(hi, device=dev))
     return g, int(num_nodes)
 
 

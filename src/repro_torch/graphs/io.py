@@ -99,6 +99,28 @@ class LoadedGraph:
     def num_edges(self) -> int:
         return int(self.src.shape[0])
 
+    def edges(self) -> tuple[np.ndarray, np.ndarray]:
+        """``src``/``dst`` read into memory, once. A cache's edges are
+        canonical as written (:func:`is_canonical`), so edges read back from
+        one that are not are a corrupt read: it raises instead of handing a
+        different graph on."""
+        src, dst = np.array(self.src), np.array(self.dst)
+        if self.cache_dir is not None and not is_canonical(src, dst):
+            raise OSError(f"{self.cache_dir!r}: the edges read back from the cache are not "
+                          f"sorted, unique and src < dst ({src.shape[0]} rows): a corrupt read")
+        return src, dst
+
+
+def is_canonical(src, dst) -> bool:
+    """True iff the edge list is canonical as a cache holds it: sorted by
+    ``(src, dst)``, no pair twice, ``src < dst``."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if not bool(np.all(src < dst)):
+        return False
+    s0, s1 = src[:-1], src[1:]
+    return bool(np.all((s1 > s0) | ((s1 == s0) & (dst[1:] > dst[:-1]))))
+
 
 # ---------------------------------------------------------------------------
 # Chunked text parsing

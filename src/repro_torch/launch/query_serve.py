@@ -17,8 +17,22 @@ refill from the queue each step. The JSON has the reference's keys for its
 local mode (p50/p99 per-request latency, QPS, an order-independent sha256
 digest of the answers), plus the device, the hand kernels' launch counts
 and the engine's sizes. It runs on the card unless ``--device cpu`` is
-given; without CUDA the default raises. The distributed tiers are not
-ported yet.
+given; without CUDA the default raises.
+
+``--distributed`` serves from one of the multi-rank tiers over
+``torch.distributed`` (NCCL with ``--device cuda``, one card a rank; gloo
+with ``--device cpu``): ``--tier replicated``
+(:class:`~repro_torch.core.query_engine.RoutedQueryEngine`) or ``--tier
+partitioned`` (:class:`~repro_torch.core.query_engine.PartitionedQueryEngine`,
+``--dense-row-nnz`` its second-hop threshold). Under ``torchrun`` the ranks
+come from the environment; without it the launcher makes a world of one.
+Every rank summarizes the graph (the same seed, the same summary), draws
+the same stream and serves it in lockstep, since the engine's collectives
+sit inside each batch; rank 0 prints the JSON, with the reference's
+``mode``, ``owner_counts`` and ``partition_stats``.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.query_serve \\
+        --distributed --tier partitioned --device cpu --dataset ego-facebook
 """
 
 from __future__ import annotations
@@ -38,12 +52,15 @@ from repro_torch.core.query_engine import (
     KIND_KHOP,
     KIND_NAMES,
     SET_KINDS,
+    PartitionedQueryEngine,
     QueryEngine,
+    RoutedQueryEngine,
     pack_set_counts,
 )
 from repro_torch.core.types import resolve_device
 from repro_torch.graphs import DATASETS, load_graph
 from repro_torch.kernels import ops
+from repro_torch.launch.summarize import init_distributed, load_rank0_first
 
 
 @dataclasses.dataclass
@@ -172,6 +189,16 @@ def main(argv=None) -> dict:
                          f"(of {sorted(KIND_NAMES)}); triangle is opt-in — "
                          "it is the one summary-space query that is not "
                          "O(1) per probe on large summaries")
+    ap.add_argument("--distributed", action="store_true",
+                    help="a multi-rank tier over torch.distributed: the ranks of "
+                         "torchrun, or a world of one (NCCL on cuda, gloo on cpu)")
+    ap.add_argument("--tier", default="replicated", choices=("replicated", "partitioned"),
+                    help="--distributed storage tier: the whole summary on every rank "
+                         "(RoutedQueryEngine) or each rank's rows and halo "
+                         "(PartitionedQueryEngine)")
+    ap.add_argument("--dense-row-nnz", type=int, default=None,
+                    help="partitioned tier: rows denser than this leave the resident "
+                         "halo and take the second-hop route")
     ap.add_argument("--pagerank-iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -185,13 +212,27 @@ def main(argv=None) -> dict:
                  f"expected from {sorted(KIND_NAMES)}")
     kinds = [KIND_NAMES[k] for k in kind_names]
     device = resolve_device(args.device)  # raises before any work without CUDA
+    # a group this call makes, it also ends; one the caller made stays
+    own_group = args.distributed and not torch.distributed.is_initialized()
+    try:
+        return _serve(args, kinds, device)
+    finally:
+        if own_group and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
+
+def _serve(args, kinds: list[int], device: torch.device) -> dict:
     t0 = time.time()
-    g = load_graph(args.edge_list or args.dataset,
-                   chunk_edges=args.chunk_edges, scale=args.scale,
-                   seed=args.seed)
+    load = lambda: load_graph(args.edge_list or args.dataset,  # noqa: E731
+                              chunk_edges=args.chunk_edges, scale=args.scale, seed=args.seed)
+    rank, world = 0, 1
+    if args.distributed:
+        rank, world, device = init_distributed(device)
+        g = load_rank0_first(load)
+    else:
+        g = load()
     load_wall_s = time.time() - t0
-    src, dst, v = np.asarray(g.src), np.asarray(g.dst), g.num_nodes
+    (src, dst), v = g.edges(), g.num_nodes
     cfg = SummaryConfig(T=args.T, k_frac=args.k_frac,
                         group_size=args.group_size, seed=args.seed)
     before = ops.launch_counts()
@@ -199,11 +240,31 @@ def main(argv=None) -> dict:
     res = summarize(src, dst, v, cfg, device=device, collect_history=False)
     summarize_wall_s = time.time() - t0
 
-    t0 = time.time()
-    engine = QueryEngine(res, device=device, pagerank_iters=args.pagerank_iters)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    partition_stats = owner_counts = None
+    if not args.distributed:
+        engine = QueryEngine(res, device=device, pagerank_iters=args.pagerank_iters)
+        mode = "local"
+    elif args.tier == "partitioned":
+        engine = PartitionedQueryEngine(res, device=device, pagerank_iters=args.pagerank_iters,
+                                        dense_row_nnz=args.dense_row_nnz)
+        mode = f"partitioned{{'ranks': {world}}}"
+    else:
+        engine = RoutedQueryEngine(res, device=device, pagerank_iters=args.pagerank_iters)
+        mode = f"routed{{'ranks': {world}}}"
+    build_peak = None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        build_peak = torch.cuda.max_memory_allocated(device) - held
     build_wall_s = time.time() - t0
+    if args.distributed:
+        owner_counts = engine.owner_counts().tolist()
+        if args.tier == "partitioned":
+            partition_stats = engine.partition_stats()  # a collective: every rank
 
     rng = np.random.default_rng(args.seed)
     server = QueryServer(engine, slots=args.batch)
@@ -216,6 +277,8 @@ def main(argv=None) -> dict:
     wall = serve(server, reqs)
     after = ops.launch_counts()
 
+    if rank != 0:  # rank 0 prints for every rank
+        return {}
     lat = np.array([r.t_done - r.t_submit for r in server.done])
     per_kind = {name: int(sum(r.kind == k for r in server.done))
                 for name, k in KIND_NAMES.items() if k in kinds}
@@ -225,7 +288,7 @@ def main(argv=None) -> dict:
         "V": v, "E": len(src),
         "num_supernodes": res.num_supernodes,
         "num_superedges": res.num_superedges,
-        "mode": "local",
+        "mode": mode,
         "device": str(device),
         "batch": args.batch,
         "requests": len(server.done),
@@ -236,6 +299,9 @@ def main(argv=None) -> dict:
         "wall_s": wall,
         "summarize_wall_s": summarize_wall_s,
         "engine_build_wall_s": build_wall_s,
+        # device bytes the engine's build took at its peak above what was held
+        # before it (None on the CPU)
+        "engine_build_peak_bytes": build_peak,
         "answers_digest": answers_digest(server.done),
         "source": g.source,
         "load_wall_s": load_wall_s,
@@ -245,6 +311,10 @@ def main(argv=None) -> dict:
         "iterations": res.iterations_run,
         "kernel_launches": {k: after[k] - before[k] for k in after},
     }
+    if args.distributed:
+        result.update(backend=torch.distributed.get_backend(), owner_counts=owner_counts)
+    if partition_stats is not None:
+        result["partition_stats"] = partition_stats
     print(json.dumps(result, indent=1))
     return result
 

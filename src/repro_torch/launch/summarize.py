@@ -106,6 +106,18 @@ def init_distributed(device: torch.device) -> tuple[int, int, torch.device]:
     return dist.get_rank(), dist.get_world_size(), device
 
 
+def load_rank0_first(load):
+    """``load()`` on rank 0, then on the other ranks: rank 0 ingests a new
+    file into its cache, and the others then find it."""
+    rank = torch.distributed.get_rank()
+    if rank == 0:
+        g = load()
+    torch.distributed.barrier()
+    if rank != 0:
+        g = load()
+    return g
+
+
 def build_distributed_pipeline(cfg: SummaryConfig, num_nodes: int, num_edges: int,
                                device, perms=None):
     """The launcher's backend: compact grouping, capacity factor 32, lean sort."""
@@ -141,7 +153,7 @@ def run_distributed(shards: EdgeShards, v: int, cfg: SummaryConfig, device,
 
 def _run_local(args, g, cfg, device, ckp, monitor) -> tuple[dict, str]:
     """The local mode's result keys and digests line."""
-    src, dst, v = np.asarray(g.src), np.asarray(g.dst), g.num_nodes
+    (src, dst), v = g.edges(), g.num_nodes
     before = ops.launch_counts()
     t0 = time.time()
     res = summarize(src, dst, v, cfg, device=device, checkpointer=ckp, monitor=monitor,
@@ -280,13 +292,8 @@ def main(argv=None) -> dict:
                               scale=args.scale, seed=args.seed)
     rank = 0
     if args.distributed:
-        # rank 0 ingests a new file into its cache; the others then find it
         rank = init_distributed(device)[0]
-        if rank == 0:
-            g = load()
-        torch.distributed.barrier()
-        if rank != 0:
-            g = load()
+        g = load_rank0_first(load)
     else:
         g = load()
     load_wall_s = time.time() - t_load

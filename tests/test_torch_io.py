@@ -253,3 +253,38 @@ def test_launcher_reads_an_edge_list(tmp_path, capsys):
     assert second["num_supernodes"] == first["num_supernodes"]
     third = launch.main(args + ["--reingest"])
     assert third["source"] == "real" and third["size_bits"] == first["size_bits"]
+
+
+def test_a_corrupt_cache_read_raises_instead_of_giving_another_graph(tmp_path):
+    """A cache's edges are canonical as written; read back out of order (a
+    span of ``src`` zeroed, as a short read would leave it) they raise."""
+    src, dst, v = generate("ego-facebook", seed=0, scale=0.05)
+    path = str(tmp_path / "g.txt")
+    write_edge_list(path, src, dst, v)
+    g = load_graph(path)
+    got_src, got_dst = g.edges()
+    assert np.array_equal(got_src, src) and np.array_equal(got_dst, dst)
+    assert pio.is_canonical(got_src, got_dst)
+    member = np.load(os.path.join(g.cache_dir, "src.npy"), mmap_mode="r+")
+    member[len(src) // 2:len(src) // 2 + 8] = 0
+    member.flush()
+    del member
+    again = load_graph(path)
+    assert again.source == "cache"  # whole on disk: the freshness check passes
+    with pytest.raises(OSError, match="corrupt read"):
+        again.edges()
+
+
+def test_canonical_edges_skip_the_sort_with_the_same_graph():
+    from repro_torch.core.types import make_graph
+
+    rng = np.random.default_rng(0)
+    a, b = rng.integers(0, 300, (2, 4000))
+    noisy = make_graph(a, b, 300, "cpu")[0]
+    src, dst = noisy.src.numpy(), noisy.dst.numpy()
+    assert pio.is_canonical(src, dst) and not pio.is_canonical(a, b)
+    again = make_graph(src, dst, 300, "cpu")[0]
+    assert torch.equal(again.src, noisy.src) and torch.equal(again.dst, noisy.dst)
+    assert not pio.is_canonical(src[::-1], dst[::-1])  # out of order
+    assert not pio.is_canonical(np.r_[src[:1], src], np.r_[dst[:1], dst])  # a pair twice
+    assert not pio.is_canonical(dst, src)  # src > dst

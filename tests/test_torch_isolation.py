@@ -51,6 +51,33 @@ def test_no_module_imports_jax_or_the_reference():
         assert m in res["modules"]
 
 
+_TIERS = r"""
+import json, sys
+import numpy as np
+from repro_torch.core import SummaryConfig, summarize
+from repro_torch.core.query_engine import PartitionedQueryEngine, QueryEngine, RoutedQueryEngine
+src, dst = np.arange(40) % 13, (np.arange(40) * 7 + 3) % 13
+res = summarize(src, dst, 13, SummaryConfig(T=2), device="cpu", collect_history=False)
+kinds, u = np.arange(7) % 7, np.arange(7)
+want = QueryEngine(res, device="cpu").answer_batch(kinds, u, u[::-1])
+same = [bool(np.array_equal(e.answer_batch(kinds, u, u[::-1]), want)) for e in (
+    RoutedQueryEngine(res, device="cpu", ranks=2),
+    PartitionedQueryEngine(res, device="cpu", ranks=2, dense_row_nnz=0))]
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "repro.")) or k == "repro")
+print(json.dumps({"same": same, "bad": bad}))
+"""
+
+
+def test_query_tiers_run_without_jax_or_the_reference():
+    """The multi-rank tiers, run in one process at 2 ranks, load no JAX."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _TIERS], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"same": [True, True], "bad": []}
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_the_reference():
     """Every import statement of ``chip_smoke.py``, at any depth."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())

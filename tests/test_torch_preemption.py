@@ -96,3 +96,29 @@ def test_launcher_resume_needs_a_checkpoint_dir():
         launch.main(["--dataset", "ego-facebook", "--scale", "0.02", "--resume",
                      "--device", "cpu"])
     assert ei.value.code == 2  # argparse's usage error
+
+
+def test_graph_load_stopped_and_continued_gives_the_same_graph(tmp_path):
+    """The launcher's graph load (an edge list's CSR cache, mmap'd, then
+    canonicalized), SIGSTOP/SIGCONT'd every 2 ms from its first instruction
+    to its exit, gives the undisturbed load's edge counts and digests."""
+    from repro_torch.graphs import load_graph, write_edge_list
+    from repro_torch.graphs.synthetic import generate
+
+    src, dst, v = generate("ego-facebook", seed=0, scale=0.05)
+    path = str(tmp_path / "g.txt")
+    write_edge_list(path, src, dst, v, shuffle=True, dup_frac=0.01, self_loops=5)
+    assert load_graph(path).source == "real"  # the cache the launcher then reads
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.chaos", "--edge-list", path,
+         "--device", "cpu", "--stop-load", "2", "--workdir", str(tmp_path / "w"),
+         "--timeout", "300"],
+        capture_output=True, text=True, timeout=600, env=_env())
+    assert out.returncode == 0, f"stdout:\n{out.stdout[-6000:]}\nstderr:\n{out.stderr[-3000:]}"
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    check = rep["stop_load"]
+    assert rep["ok"] and not check["errors"] and not rep["scenarios"]
+    assert check["undisturbed"]["source"] == "cache"
+    assert check["undisturbed"]["E"] == check["undisturbed"]["loaded_E"] == len(src)
+    assert [run["rc"] for run in check["disturbed"]] == [0, 0]
+    assert min(run["stops"] for run in check["disturbed"]) >= 100
