@@ -64,12 +64,25 @@ card and CPU runs. Phases, one line each or a few:
      single-device engine bit for bit (PageRank blocks and steps, the
      triangle total, a 64-slot batch of each kind), each rank's resident row
      bytes below the whole CSR's; segment_sum over each rank's rows equals
-     those rows of one launch over all.
+     those rows of one launch over all;
+  11. multi-host: (a) the launcher through the bootstrap's flags
+     (``--coordinator localhost:PORT --num-processes 1 --process-id 0``) on
+     phase 6's file, equal to phase 9's run on every exact key and digest,
+     each kernel launched once a round, its median round beside phase 9's;
+     (b) ``compressed_all_reduce`` on the card's tensors at a world of one
+     over NCCL and with 4 ranks in this process, on the wire check's shapes
+     and one 2^24-element float32 payload: measured wire bytes equal to the
+     priced, sums equal to the CPU's float64 sums (rtol 1e-5), top-k
+     conservation exact, each rank's residual its own; the encode and
+     all-reduce times beside the payload's bytes bound; (c)
+     ``tests/torch_multihost_check.py`` over 2 gloo processes on the host's
+     CPU (ego-facebook 0.05, T = 5): golden, multihost, resume and wire legs,
+     each leg's wall (host time).
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
-numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9
-and 10), and as the last line
+numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
+10 and 11a), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -114,8 +127,21 @@ QUERY_TOL = {"degree": (1e-12, 1e-15), "adjacency": (1e-12, 1e-15),
              "cut": (0.0, 1e-9), "conductance": (0.0, 1e-9)}
 ALL_KINDS = "degree,adjacency,pagerank,triangle,khop,cut,conductance"
 INT_STATS = ("nmerges", "num_supernodes", "num_superedges")
+# tests/torch_multihost_check.py's exact keys (the digests line is compared apart)
+MULTIHOST_EXACT_KEYS = ("V", "E", "mode", "size_bits", "size_bits_before_sparsify",
+                        "relative_size", "re1", "re2", "num_supernodes", "num_superedges",
+                        "superedges_dropped")
+WIRE_SHAPES = {"w": (33, 7), "b": (13,), "s": ()}  # tests/torch_wire_check.py's
 SERVE_REQUESTS = 4096
 SERVE_SLOTS = 64
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def log(msg: str) -> None:
@@ -1361,6 +1387,7 @@ def run(tmp: str) -> int:
             digests = [ln for ln in buf.getvalue().splitlines() if ln.startswith("digests")]
             runs.append((out, digests[0], ops.launch_counts(), torch.cuda.max_memory_allocated()))
         (out, dig, counts, peak), (out2, dig2, _, _) = runs
+        ctx["dist_run"] = (out, dig)
         hist = out["history"]
         rounds_ms = [h["round_s"] * 1e3 for h in hist]
         log(f"--distributed (compact, capacity factor 32, world {world}, {out['backend']}): "
@@ -1667,6 +1694,163 @@ def run(tmp: str) -> int:
             raise AssertionError("; ".join(errors))
 
     smoke.phase("10 query tiers", phase_query_tiers)
+
+    # ---- 11. multi-host: the bootstrap, the codecs, the four-leg gate --------
+    def phase_multihost():
+        import contextlib
+        import io
+
+        import torch.distributed as tdist
+        from repro_torch.core.query_engine import RankSet
+        from repro_torch.dist.compress import (CompressConfig, compressed_all_reduce,
+                                               encode_int8, encode_topk, payload_bytes)
+        from repro_torch.graphs import write_edge_list
+        from repro_torch.launch import summarize as launch
+
+        card = nvidia_smi("name,power.limit")
+        errors = []
+
+        # (a) the launcher through the bootstrap's flags at a world of one
+        if "dist_run" not in ctx:
+            raise AssertionError("phase 9's run is not at hand")
+        out9, dig9 = ctx["dist_run"]
+        args = ["--edge-list", ctx["edge_list"], "--T", "20", "--k-frac", "0.3",
+                "--distributed", "--device", "cuda", "--coordinator",
+                f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0"]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = launch.main(args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        dig = [ln for ln in buf.getvalue().splitlines() if ln.startswith("digests")][0]
+        med = np.median([h["round_s"] * 1e3 for h in out["history"]])
+        med9 = np.median([h["round_s"] * 1e3 for h in out9["history"]])
+        differ = [k for k in MULTIHOST_EXACT_KEYS if out[k] != out9[k]]
+        log(f"[{card}] --distributed --coordinator ... --num-processes 1: mode {out['mode']} "
+            f"({out['backend']}, {out['device']}), {out['iterations']} rounds, size_bits "
+            f"{out['size_bits']}, supernodes {out['num_supernodes']}, feed {out['feed_path']}, "
+            f"process {out['process_index']} of {out['process_count']}; median round "
+            f"{med:.1f} ms (phase 9: {med9:.1f} ms); summarize wall {out['wall_s']:.2f} s; "
+            f"exact keys differing from phase 9: {differ}; digests equal: {dig == dig9}; "
+            f"launches {counts}")
+        if differ or dig != dig9:
+            errors.append(f"the bootstrapped launcher differs from phase 9: {differ}, "
+                          f"digests equal {dig == dig9}")
+        n = out["iterations"]
+        if counts != {"merge_gain": n, "pair_cost": n, "segment_sum": 0, "ordered_sum": 0}:
+            errors.append(f"launch counts {counts} != one of each per round ({n} rounds)")
+        for k in counts:
+            smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
+                "multi-host"] = counts[k]
+
+        # (b) the codecs on the card: a world of one over NCCL, and P = 4 ranks
+        # in this process; the wire check's shapes and one 2^24-element payload
+        launch.init_distributed(dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        shapes = dict(WIRE_SHAPES, big=(1 << 24,))
+
+        def tree_of():
+            return {k: torch.randn(shp, generator=gen, device=dev) for k, shp in shapes.items()}
+
+        for label, ranks, trees in (("NCCL world of one", RankSet(dev), [tree_of()]),
+                                    ("P = 4 in one process", RankSet(dev, ranks=4),
+                                     [tree_of() for _ in range(4)])):
+            p = ranks.size
+            one = p == 1
+            cpu = [{k: x.cpu() for k, x in t.items()} for t in trees]
+            errs = [{k: torch.zeros_like(x, dtype=torch.float32) for k, x in t.items()}
+                    for t in trees]
+            line = []
+            for kind in ("none", "int8", "topk"):
+                cfg = CompressConfig(kind, topk_ratio=0.1)
+                summed, new_err, wire = compressed_all_reduce(
+                    trees[0] if one else trees, errs[0] if one else errs, cfg, ranks)
+                priced = p * payload_bytes(trees[0], cfg)
+                if wire != priced:
+                    errors.append(f"{label} {kind}: measured {wire} bytes, priced {priced}")
+                if kind == "none":
+                    parts = cpu
+                elif kind == "int8":
+                    parts = []
+                    for c in cpu:
+                        q, sc = encode_int8(c)
+                        parts.append({k: q[k].double() * sc[k].double() for k in c})
+                else:
+                    parts = []
+                    got_err = [new_err] if one else new_err
+                    for r, c in enumerate(cpu):
+                        sent, res = encode_topk(c, None, 0.1)
+                        parts.append(sent)
+                        for k in c:
+                            if not torch.equal(sent[k] + res[k], c[k]):
+                                errors.append(f"{label} topk rank {r} {k}: sent + residual "
+                                              "!= acc")
+                            if not torch.equal(got_err[r][k].cpu(), res[k]):
+                                errors.append(f"{label} topk rank {r} {k}: the residual is "
+                                              "not this rank's own")
+                for k in shapes:
+                    want = sum(x[k].double() for x in parts).numpy()
+                    if not np.allclose(summed[k].cpu().double().numpy(), want, rtol=RTOL,
+                                       atol=1e-5 if kind == "none" else 1e-6):
+                        errors.append(f"{label} {kind} {k}: the sum differs from the CPU's "
+                                      "float64 sum")
+                big = [t["big"] for t in trees]
+                nbytes = big[0].numel() * 4
+                if one:
+                    t_ar = time_single(torch, lambda: compressed_all_reduce(
+                        {"big": big[0]}, {"big": errs[0]["big"]}, cfg, ranks), reps=5)
+                else:
+                    t_ar = time_single(torch, lambda: compressed_all_reduce(
+                        [{"big": b} for b in big], [{"big": e["big"]} for e in errs], cfg,
+                        ranks), reps=5)
+                # the least bytes the all-reduce must move: every rank's payload
+                # read once and the sum written once
+                ar_bound = (p + 1) * nbytes / HBM_BYTES_PER_S * 1e3
+                line.append(f"{kind} {t_ar:.3f} ms (bound {ar_bound:.3f}, wire {wire} B)")
+            t_int8 = time_cuda(torch, lambda: encode_int8({"big": big[0]}), launches=10)
+            t_topk = time_cuda(torch, lambda: encode_topk({"big": big[0]}, None, 0.1),
+                               launches=5)
+            # int8: read 4 B, write 1 B an element; top-k: read 4 B, write the
+            # dense sent and the residual, 4 B each
+            log(f"[{card}] codecs, {label}, payload 2^24 float32 ({nbytes} B): all-reduce "
+                f"(one call, CUDA events, the wire-byte read-back inside) "
+                + "; ".join(line) + f"; encode_int8 {t_int8:.4f} ms (bound "
+                f"{5 * big[0].numel() / HBM_BYTES_PER_S * 1e3:.4f}), encode_topk "
+                f"{t_topk:.4f} ms (bound {12 * big[0].numel() / HBM_BYTES_PER_S * 1e3:.4f})")
+            del trees, cpu, errs
+        tdist.destroy_process_group()
+
+        # (c) the four-leg gate over gloo on this host's CPU, 2 processes
+        path = os.path.join(ctx["tmp"], "ego-facebook-0.05.txt")
+        src_s, dst_s, v_s = generate("ego-facebook", seed=0, scale=0.05)
+        write_edge_list(path, src_s, dst_s, v_s)
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tests", "torch_multihost_check.py"),
+             "--edge-list", path, "--T", "5", "--num-processes", "2", "--device", "cpu",
+             "--workdir", os.path.join(ctx["tmp"], "multihost"), "--timeout", "240"],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"torch_multihost_check failed:\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        rep = json.loads(proc.stdout[proc.stdout.index("{"):])
+        mh = rep["legs"]["multihost"]["procs"]
+        log(f"torch_multihost_check, 2 gloo processes on the host's CPU, ego-facebook 0.05, "
+            f"T=5: ok {rep['ok']}; legs' walls (host time, s) "
+            + ", ".join(f"{k} {w:.1f}" for k, w in rep["walls"].items())
+            + f"; golden size_bits {rep['legs']['golden']['size_bits']}; resume from step "
+            f"{rep['legs']['resume'].get('resume_from')}; feed a process: "
+            + ", ".join(f"{p['feed_path']} {p['feed_shard_rows']} rows, "
+                        f"{p['feed_bytes_copied']} B copied" for p in mh))
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("11 multi-host", phase_multihost)
 
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")

@@ -13,7 +13,9 @@ implementations and a round compared:
   * :class:`ReplayRoundPermutations` — the edge-sharded backend's source
     that replays the reference's draws by round and rank;
   * :func:`group_tables_from_numpy` — a reference ``GroupTables`` as the
-    port's.
+    port's;
+  * :func:`tree_from_numpy` — a reference pytree of numpy arrays (bfloat16
+    leaves included) as the port's tree of tensors, in jax's flatten order.
 """
 
 from __future__ import annotations
@@ -112,3 +114,21 @@ def group_tables_from_numpy(m, n, s, t, n_u, cidx, w, members, device) -> GroupT
         w=f32(w),
         members=torch.as_tensor(np.array(members, np.int64), device=device),
     )
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy counterpart in torch
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def tree_from_numpy(tree, device):
+    """A reference pytree of numpy arrays as the port's tree of tensors on
+    ``device``: dicts rebuilt with their keys sorted (jax's flatten order,
+    the order the port's codecs walk), lists and tuples kept, ``None`` kept."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(tree[k], device) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(x, device) for x in tree)
+    return None if tree is None else _tensor_from_numpy(tree, device)

@@ -97,7 +97,10 @@ def global_preempt(local: bool) -> bool:
     if _world()[1] == 1:
         return bool(local)
     dist = torch.distributed
-    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    # NCCL carries the flag on this process's current card (the one the
+    # launcher or the bootstrap set), not on card 0
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
     flag = torch.tensor([int(bool(local))], dtype=torch.int32, device=dev)
     dist.all_reduce(flag, op=dist.ReduceOp.MAX)
     return bool(flag.item())

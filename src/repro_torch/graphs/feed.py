@@ -1,14 +1,16 @@
 """Per-rank edge shards: the CSR cache's mmap'd columns → this rank's rows.
 
 Port of ``repro/graphs/feed.py`` (``FeedStats``, ``shard_layout``,
-``shard_edges``, ``shard_edges_from_cache``) for a ``torch.distributed``
-group. The edge columns are split into P contiguous ``-1``-padded shards
+``shard_edges``, ``shard_edges_from_cache``,
+``shard_edges_from_cache_multihost``) for a ``torch.distributed`` group. The edge columns are split into P contiguous ``-1``-padded shards
 exactly as the reference splits them over its mesh
 (``padded = |E| + (−|E| mod P)``, shard ``r`` = rows ``[r·rows, (r+1)·rows)``),
 and rank ``r`` stages and copies only shard ``r``: one shard-sized host
 buffer a column, never a full-|E| array. The cache feed slices the cache's
 ``src.npy``/``dst.npy`` with ``mmap_mode="r"``, so only this rank's pages
-are read.
+are read. The multi-host feed is the same feed, named for a group that
+spans processes: every process opens the same cache (a shared file system
+or an identical copy) and reads only its own rows.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class FeedStats:
     shard_bytes: int = 0
     peak_staging_bytes: int = 0
     bytes_copied: int = 0
-    path: str = "memory"  # "memory" | "cache-mmap"
+    path: str = "memory"  # "memory" | "cache-mmap" | "cache-mmap-multihost"
     process_count: int = 1
     local_shards: int = 0
 
@@ -81,13 +83,13 @@ def _madvise_dontneed(column) -> None:
 
 
 def _feed(src, dst, num_edges: int, rank: int, n_ranks: int, device,
-          path: str, num_nodes: int | None) -> EdgeShards:
+          path: str, num_nodes: int | None, process_count: int = 1) -> EdgeShards:
     if not 0 <= rank < n_ranks:
         raise ValueError(f"rank {rank} outside a group of {n_ranks}")
     rows, padded = shard_layout(num_edges, n_ranks)
     stats = FeedStats(num_edges=num_edges, padded_edges=padded, n_devices=n_ranks,
                       shard_rows=rows, shard_bytes=rows * 4, path=path,
-                      local_shards=1)
+                      process_count=process_count, local_shards=1)
     a = rank * rows
     n_valid = max(min(num_edges, a + rows) - a, 0)
     cols = []
@@ -121,6 +123,24 @@ def shard_edges_from_cache(cache_dir: str, rank: int, n_ranks: int,
     """This rank's shard, sliced straight out of the CSR cache's mmap'd
     ``src.npy``/``dst.npy``; |E| and |V| come from ``meta.json``. Raises
     ``FileNotFoundError`` for a missing or stale cache."""
+    return _feed_cache(cache_dir, rank, n_ranks, device, "cache-mmap", 1)
+
+
+def shard_edges_from_cache_multihost(cache_dir: str, rank: int, n_ranks: int,
+                                     device: str | torch.device = "cuda") -> EdgeShards:
+    """:func:`shard_edges_from_cache` in a group that spans processes: the
+    same shard, staging and accounting, with ``process_count`` the default
+    group's size (1 when none is initialized) and the path
+    ``cache-mmap-multihost`` when that is more than one, else ``cache-mmap``.
+    Every process passes the same ``cache_dir``."""
+    dist = torch.distributed
+    procs = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return _feed_cache(cache_dir, rank, n_ranks, device,
+                       "cache-mmap-multihost" if procs > 1 else "cache-mmap", procs)
+
+
+def _feed_cache(cache_dir: str, rank: int, n_ranks: int, device, path: str,
+                process_count: int) -> EdgeShards:
     if not graph_io.cache_is_fresh(cache_dir):
         raise FileNotFoundError(
             f"{cache_dir!r}: not a complete ssumm cache (missing or corrupt members, "
@@ -133,8 +153,8 @@ def shard_edges_from_cache(cache_dir: str, rank: int, n_ranks: int,
     if src_mm.shape[0] != num_edges or dst_mm.shape[0] != num_edges:
         raise ValueError(f"{cache_dir!r}: meta.json says |E|={num_edges} but members "
                          f"have {src_mm.shape[0]}/{dst_mm.shape[0]} rows")
-    out = _feed(src_mm, dst_mm, num_edges, rank, n_ranks, device, "cache-mmap",
-                int(meta["num_nodes"]))
+    out = _feed(src_mm, dst_mm, num_edges, rank, n_ranks, device, path,
+                int(meta["num_nodes"]), process_count)
     _madvise_dontneed(src_mm)
     _madvise_dontneed(dst_mm)
     return out

@@ -6,10 +6,12 @@
         --checkpoint-dir ck/ [--resume]
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.summarize \
         --distributed --device cpu --dataset ego-facebook --scale 0.05
+    PYTHONPATH=src python -m repro_torch.launch.summarize --distributed \
+        --device cpu --edge-list g.txt --coordinator HOST:PORT \
+        --num-processes 2 --process-id 0        # and --process-id 1 elsewhere
 
 Port of ``repro/launch/summarize.py``'s local and ``--distributed`` modes
-(multi-host bootstrapping, ``--coordinator``/``--num-processes``, is not
-ported). The local mode loads the graph
+and its multi-host bootstrap. The local mode loads the graph
 through :func:`repro_torch.graphs.load_graph` (real file, then its CSR
 cache, then the registry's synthetic stand-in), runs SSumM and prints one
 JSON object with the reference's keys that this port fills (Eq. 2/4
@@ -28,16 +30,26 @@ straggler monitor is always on and reports slow chunks on stderr.
 ``--distributed`` runs the edge-sharded backend
 (:mod:`repro_torch.core.distributed`, compact grouping, capacity factor 32,
 lean sort) over ``torch.distributed``: NCCL with ``--device cuda`` (one card
-a rank, ``LOCAL_RANK``), gloo with ``--device cpu``. Under ``torchrun`` the
-ranks come from the environment; without it the launcher makes a world of
-one. Each rank feeds only its own edge shard (from the CSR cache when the
-graph has one, :mod:`repro_torch.graphs.feed`), and rank 0 prints the
-digests and the JSON, with the reference's distributed keys (``mode``,
-``size_bits_before_sparsify``, ``superedges_dropped``, ``feed_*``,
-``sparsify_wall_s``, ...) and the port's (``history``, ``bucket_cap``,
-``bucket_bytes``, ``kernel_launches``). A resume may run on another number
-of ranks: the state is loaded whole on every rank and the shards are fed
-again at the new count.
+a rank), gloo with ``--device cpu``. The group is, in this order: one the
+caller already made; ``torchrun``'s, from its environment; the multi-host
+bootstrap's (:func:`repro_torch.launch.mesh.bootstrap_distributed`), from
+``--coordinator HOST:PORT --num-processes N --process-id i`` or the
+``SSUMM_*`` environment, one process a rank on any number of hosts; else a
+world of one. With more than one rank, each rank feeds only its own edge
+shard from the CSR cache when the graph has one
+(:mod:`repro_torch.graphs.feed`, ``feed_path`` ``cache-mmap-multihost``);
+the bootstrap refuses a graph without one. Under ``torchrun`` or a world of
+one, rank 0 prints the digests and the JSON; under the bootstrap every
+process prints its own, as the reference's processes do, and peers give
+the same summary bit for bit. The JSON has the reference's distributed keys
+(``mode``, ``size_bits_before_sparsify``, ``superedges_dropped``,
+``feed_*``, ``process_index``, ``process_count``, ``sparsify_wall_s``, ...)
+and the port's (``history``, ``bucket_cap``, ``bucket_bytes``,
+``kernel_launches``). Rank 0 ingests a new file and writes the
+checkpoints, so every process must see the same file system for the cache
+and the checkpoint directory. A resume may run on another number of ranks:
+the state is loaded whole on every rank and the shards are fed again at
+the new count.
 """
 
 from __future__ import annotations
@@ -59,8 +71,14 @@ from repro_torch.core.distributed import bucket_bytes, make_distributed_backend
 from repro_torch.core.engine import EngineCheckpointer, SummaryEngine
 from repro_torch.core.types import make_graph, resolve_device
 from repro_torch.graphs import DATASETS, load_graph
-from repro_torch.graphs.feed import EdgeShards, shard_edges, shard_edges_from_cache
+from repro_torch.graphs.feed import (
+    EdgeShards,
+    shard_edges,
+    shard_edges_from_cache,
+    shard_edges_from_cache_multihost,
+)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import bootstrap_distributed, resolve_flags
 from repro_torch.runtime import (
     RESUMABLE_EXIT,
     CheckpointManager,
@@ -80,25 +98,41 @@ def peak_rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
-def init_distributed(device: torch.device) -> tuple[int, int, torch.device]:
+def under_torchrun() -> bool:
+    """Whether ``torchrun`` started this process (``RANK``/``WORLD_SIZE`` set)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def init_distributed(device: torch.device, coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> tuple[int, int, torch.device]:
     """Join (or make) the default process group; returns ``(rank, world,
     device)`` with the rank's card on CUDA.
 
-    Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set) the group comes from the
-    environment; otherwise a world of one with an in-process store. An
-    already initialized group is used as it is. NCCL on the card, gloo on
-    the CPU; CUDA without NCCL raises.
+    In this order: an already initialized group is used as it is; under
+    ``torchrun`` (``RANK``/``WORLD_SIZE`` set) the group comes from the
+    environment; with more than one process asked for by the flags or the
+    ``SSUMM_*`` environment, :func:`~repro_torch.launch.mesh.bootstrap_distributed`
+    joins it and picks the card; otherwise a world of one with an in-process
+    store. NCCL on the card, gloo on the CPU; CUDA without NCCL raises.
     """
     dist = torch.distributed
     backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda" and not dist.is_nccl_available():
+        raise RuntimeError("--distributed --device cuda needs NCCL, and this "
+                           "PyTorch has no NCCL; use --device cpu (gloo)")
+    torchrun = under_torchrun()
+    if not dist.is_initialized() and not torchrun:
+        info = bootstrap_distributed(coordinator, num_processes, process_id, device=device)
+        if info.initialized:
+            return dist.get_rank(), dist.get_world_size(), info.device
     if device.type == "cuda":
-        if not dist.is_nccl_available():
-            raise RuntimeError("--distributed --device cuda needs NCCL, and this "
-                               "PyTorch has no NCCL; use --device cpu (gloo)")
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", int(local) if local not in (None, "")
+                              else torch.cuda.current_device())
         torch.cuda.set_device(device)
     if not dist.is_initialized():
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if torchrun:
             dist.init_process_group(backend, init_method="env://")
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
@@ -182,13 +216,23 @@ def _run_local(args, g, cfg, device, ckp, monitor) -> tuple[dict, str]:
     return result, digests
 
 
-def _run_distributed(args, g, cfg, device, ckp, monitor) -> tuple[dict, str]:
-    """``--distributed``: the result keys and digests line (the same on
-    every rank)."""
-    rank, world, device = init_distributed(device)
+def _run_distributed(args, g, cfg, device, ckp, monitor, multihost: bool
+                     ) -> tuple[dict, str]:
+    """``--distributed`` on the group :func:`init_distributed` joined: the
+    result keys and digests line (the same on every rank but for the
+    ``process_index``). ``multihost``: the group came from the bootstrap."""
+    dist = torch.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
     src, dst, v = g.src, g.dst, g.num_nodes
     t_feed = time.time()
-    if g.cache_dir is not None:
+    if multihost and g.cache_dir is None:
+        raise SystemExit("multi-process summarize needs a CSR-cached graph "
+                         "(--edge-list or a cached registry dataset): the "
+                         "synthetic in-memory path would materialize the "
+                         "full edge list on every host")
+    if g.cache_dir is not None and world > 1:
+        shards = shard_edges_from_cache_multihost(g.cache_dir, rank, world, device)
+    elif g.cache_dir is not None:
         shards = shard_edges_from_cache(g.cache_dir, rank, world, device)
     else:
         graph, _ = make_graph(src, dst, v, "cpu")
@@ -278,21 +322,41 @@ def main(argv=None) -> dict:
                     help="where the summary runs (default: the card)")
     ap.add_argument("--distributed", action="store_true",
                     help="edge-sharded over torch.distributed: the ranks of torchrun, "
-                         "or a world of one (NCCL on cuda, gloo on cpu)")
+                         "of the --coordinator bootstrap, or a world of one (NCCL on "
+                         "cuda, gloo on cpu)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="torch.distributed rendezvous address for a process-"
+                         "spanning run (process 0 listens there); every process "
+                         "passes the same value")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total processes in the run (default: "
+                         "$SSUMM_NUM_PROCESSES, else single-process)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank in [0, --num-processes)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
+    # the bootstrap's flags resolve before anything else, as the reference's
+    # (a ValueError for a missing coordinator or process id)
+    n_proc = resolve_flags(args.coordinator, args.num_processes, args.process_id)[1]
+    if n_proc > 1 and not args.distributed:
+        ap.error("--coordinator/--num-processes only make sense with "
+                 "--distributed")
     device = resolve_device(args.device)  # raises before any work without CUDA
 
     # a group this call makes, it also ends; one the caller made stays
     own_group = args.distributed and not torch.distributed.is_initialized()
+    # under the bootstrap every process prints its own result, as the
+    # reference's do; otherwise rank 0 prints for every rank
+    multihost = own_group and n_proc > 1 and not under_torchrun()
     t_load = time.time()
     load = lambda: load_graph(args.edge_list or args.dataset,  # noqa: E731
                               chunk_edges=args.chunk_edges, refresh=args.reingest,
                               scale=args.scale, seed=args.seed)
     rank = 0
     if args.distributed:
-        rank = init_distributed(device)[0]
+        rank, _, device = init_distributed(device, args.coordinator, args.num_processes,
+                                           args.process_id)
         g = load_rank0_first(load)
     else:
         g = load()
@@ -325,13 +389,14 @@ def main(argv=None) -> dict:
     t0 = time.time()
     try:
         if args.distributed:
-            result, digests = _run_distributed(args, g, cfg, device, ckp, monitor)
+            result, digests = _run_distributed(args, g, cfg, device, ckp, monitor,
+                                               multihost)
         else:
             result, digests = _run_local(args, g, cfg, device, ckp, monitor)
     except Preempted as p:
         # save-and-exit: the committed checkpoint is the resume point;
         # RESUMABLE_EXIT tells the supervisor "rerun me with --resume"
-        if rank == 0:
+        if rank == 0 or multihost:
             print(json.dumps(dict(ingest, preempted=True, checkpoint_step=p.step,
                                   checkpoint_dir=args.checkpoint_dir,
                                   wall_s=time.time() - t0), indent=1), flush=True)
@@ -339,7 +404,7 @@ def main(argv=None) -> dict:
     finally:
         if own_group:
             torch.distributed.destroy_process_group()
-    if rank != 0:  # rank 0 prints for every rank
+    if rank != 0 and not multihost:  # rank 0 prints for every rank
         return {}
     result.update(ingest)
     if ckp is not None:

@@ -47,7 +47,8 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.graphs.io", "repro_torch.core.queries",
               "repro_torch.core.query_engine", "repro_torch.launch.query_serve",
               "repro_torch.kernels.segment_sum", "repro_torch.core.distributed",
-              "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.graphs.feed"):
+              "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.graphs.feed",
+              "repro_torch.dist.compress", "repro_torch.launch.mesh"):
         assert m in res["modules"]
 
 
@@ -78,18 +79,32 @@ def test_query_tiers_run_without_jax_or_the_reference():
     assert res == {"same": [True, True], "bad": []}
 
 
-def test_chip_smoke_imports_nothing_of_jax_or_the_reference():
-    """Every import statement of ``chip_smoke.py``, at any depth."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imports(path: pathlib.Path) -> list[str]:
+    """The modules every import statement of ``path`` names, at any depth."""
     names = []
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_reference():
+    """Every import statement of ``chip_smoke.py``, at any depth."""
+    names = _imports(ROOT / "chip_smoke.py")
     assert "repro_torch.core" in names and "torch" in names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
+
+
+@pytest.mark.parametrize("script,banned", [
+    ("torch_multihost_check.py", ("jax", "jaxlib", "repro", "repro_torch", "torch")),
+    ("torch_wire_check.py", ("jax", "jaxlib", "repro"))])
+def test_multihost_check_scripts_import_neither_package(script, banned):
+    """The gate only launches subprocesses; its wire leg imports the port alone."""
+    names = _imports(ROOT / "tests" / script)
+    assert [n for n in names if n.split(".")[0] in banned] == []
 
 
 def _no_cuda():
