@@ -16,7 +16,8 @@ card and CPU runs. Phases, one line each or a few:
   2. merge_gain (CUDA) against plain, on CPU copies and on the card (the
      plain version adds over U in the reference's order on both): test
      shapes, C=64/U=256 (shared-memory opt-in), every group of the real
-     round-1 tables; the dense case's time; argmax tie rules;
+     round-1 tables on the card, an eighth of them and the 512 densest on
+     CPU copies; the dense case's time; argmax tie rules;
   3. pair_cost (Triton) against plain: E in {7, 1025, 5000} and the real
      pair table;
   4. the main path at full size: budget met, metrics finite, each kernel
@@ -77,12 +78,27 @@ card and CPU runs. Phases, one line each or a few:
      all-reduce times beside the payload's bytes bound; (c)
      ``tests/torch_multihost_check.py`` over 2 gloo processes on the host's
      CPU (ego-facebook 0.05, T = 5): golden, multihost, resume and wire legs,
-     each leg's wall (host time).
+     each leg's wall (host time);
+  12. the baselines: (a) ``evaluate_partition`` of phase 4's partition on the
+     card against the CPU (counts exact, floats to rtol 1e-12); (b) S2L on
+     email-enron's stand-in at full size twice on the card (the same bits;
+     wall, seeding, Lloyd iterations, peak memory, the chunk budget); (c) S2L
+     at a quarter of it, card against CPU, each assignment recorded (labels
+     equal, the first differing distance gap; RE1 and size within 1%); (d)
+     the paper's Fig. 4 point: SSumM on the card against k-Gs and SAA-Gs
+     (ego-facebook 0.1, seed 1, T = 10), each kernel launched once a round;
+  13. LM serving: (a) qwen2.5-14B at full width, 2 layers, float32, TF32 off:
+     forward on the card against the CPU, decode against forward (rtol and
+     atol 1e-3); (b) the full 48-layer bfloat16 model initialised on the
+     card from a seed, 8 requests through ``BatchServer`` (8 slots, prompt
+     32, gen 32, max_len 128) twice, the same tokens; init time, median
+     decode step against its bytes bound, tokens/s, peak memory, three
+     profiled steps; the share of tokens equal to 1 slot (not asserted).
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10 and 11a), and as the last line
+10, 11a and 12d), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -552,13 +568,18 @@ def run(tmp: str) -> int:
         full = (gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w, scal)
         got = merge_gain_cuda(*full)
         check_gain_shape(got)
+        # on CPU copies: every eighth 512-group block and the 512 groups with
+        # the densest rows (all 65,536 groups took 157-180 s of the limit)
+        gid = torch.arange(g_all, device=dev)
+        densest = gt.m.ne(0).sum(-1).amax(-1).argsort(descending=True, stable=True)[:512]
+        cpu_ids = torch.unique(torch.cat([gid[(gid // 512) % 8 == 0], densest]))
         err_real = 0.0
         t0 = time.perf_counter()
-        for lo in range(0, g_all, 512):
-            chunk = [x[lo:lo + 512] for x in full[:7]]
-            err_real = max(err_real, gain_error(
-                (got[0][lo:lo + 512], got[1][lo:lo + 512]),
-                plain_gain_cpu(ref, chunk, scal)))
+        for lo in range(0, len(cpu_ids), 512):
+            idx = cpu_ids[lo:lo + 512]
+            err_real = max(err_real, gain_error((got[0][idx], got[1][idx]),
+                                                plain_gain_cpu(ref, [x[idx] for x in full[:7]],
+                                                               scal)))
         cpu_s = time.perf_counter() - t0
         # the plain version on the card adds in the reference's order too
         # (f32math.sum_last); its log2 is the card's
@@ -575,8 +596,9 @@ def run(tmp: str) -> int:
         nz = gt.m != 0
         row_nnz = nz.sum(-1)
         full_words = int(nz.reshape(g_all, c, -1, 32).all(-1).sum()) if u % 32 == 0 else 0
-        log(f"merge_gain on all G={g_all} real groups against the plain version on "
-            f"the CPU ({cpu_s:.0f} s): max abs err {err_real:.3g}; "
+        log(f"merge_gain on {len(cpu_ids)} of the G={g_all} real groups (every eighth "
+            f"block of 512 and the 512 densest) against the plain version on the CPU "
+            f"({cpu_s:.0f} s): max abs err {err_real:.3g}; "
             f"{valid} valid entries; rows: at most {int(row_nnz.max())} nonzeros of "
             f"U={u}, {int((row_nnz >= 64).sum())} rows with 64 or more, "
             f"{full_words} full 32-column words")
@@ -1852,6 +1874,267 @@ def run(tmp: str) -> int:
 
     smoke.phase("11 multi-host", phase_multihost)
 
+    # ---- 12. the baselines on the card ---------------------------------------
+    def phase_baselines():
+        from repro_torch.baselines import (evaluate_partition, summarize_kgs, summarize_s2l,
+                                           summarize_saa_gs)
+        from repro_torch.baselines import s2l as s2l_lib
+        errors = []
+        # (a) phase 4's full-size partition, evaluated on the card and the CPU
+        src, dst, v = ctx["src"], ctx["dst"], ctx["v"]
+        n2s = ctx["res_arrays"]["node2super"]
+        walls, got = [], None
+        for _ in range(2):  # the second call is the warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = evaluate_partition(src, dst, v, n2s, "ssumm", device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = evaluate_partition(src, dst, v, n2s, "ssumm", device="cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = {k: abs(getattr(got, k) - getattr(want, k)) / max(abs(getattr(want, k)), 1e-300)
+               for k in ("size_bits", "input_size_bits", "re1", "re2")}
+        log(f"12a evaluate_partition, phase 4's partition (V={v}, E={len(src)}): card "
+            f"{walls[0] * 1e3:.1f} ms (host-to-card copies included), warm "
+            f"{walls[1] * 1e3:.1f} ms; CPU {cpu_s * 1e3:.1f} ms; supernodes "
+            f"{got.num_supernodes}, superedges (all nonzero pairs) {got.num_superedges}, "
+            f"re1 {got.re1!r}, re2 {got.re2!r}, size_bits {got.size_bits!r}; relative "
+            f"differences card vs CPU {rel}")
+        if (got.num_supernodes, got.num_superedges) != (want.num_supernodes,
+                                                        want.num_superedges):
+            errors.append("12a: card and CPU counts differ")
+        if not torch.equal(got.node2super.cpu(), want.node2super):
+            errors.append("12a: node2super differs")
+        if max(rel.values()) > 1e-12:
+            errors.append(f"12a: floats beyond rtol 1e-12: {rel}")
+
+        # (b) S2L at email-enron's full size, twice on the card
+        src2, dst2, v2 = generate("email-enron", seed=0, scale=1.0)
+        k2 = max(int(0.3 * v2), 2)
+        runs = []
+        for _ in range(2):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = summarize_s2l(src2, dst2, v2, target_frac=0.3, seed=0, device="cuda",
+                              stats=stats)
+            torch.cuda.synchronize()
+            runs.append((r, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated()))
+        (r0, st0, w0, p0), (r1, st1, w1, p1) = runs
+        same = torch.equal(r0.node2super, r1.node2super) and all(
+            getattr(r0, k) == getattr(r1, k) for k in ("size_bits", "re1", "re2",
+                                                        "num_supernodes", "num_superedges"))
+        rows = max(1, s2l_lib.ASSIGN_BYTES // (4 * k2))
+        for i, (r, st, w, pk) in enumerate(runs):
+            log(f"12b S2L email-enron V={v2} E={len(src2)} k={k2} dims=32, run {i + 1}: wall "
+                f"{w:.2f} s, seeding {st['seed_s']:.2f} s, Lloyd {st['lloyd_iters']} "
+                f"iterations in {st['lloyd_s']:.3f} s "
+                f"({st['lloyd_s'] / max(st['lloyd_iters'], 1) * 1e3:.2f} ms an iteration), "
+                f"peak {pk / 2**20:.1f} MiB; supernodes {r.num_supernodes}, re1 {r.re1!r}, "
+                f"relative size {r.size_bits / r.input_size_bits!r}")
+        log(f"12b chunk budget {s2l_lib.ASSIGN_BYTES} bytes a [rows, k] block: {rows} rows a "
+            f"chunk, {-(-v2 // rows)} chunks; two card runs equal bit for bit: {same}")
+        if not same:
+            errors.append("12b: two card runs of S2L differ")
+
+        # (c) the same S2L at scale 0.25, card against CPU, each Lloyd step recorded
+        src3, dst3, v3 = generate("email-enron", seed=0, scale=0.25)
+        inner, calls = s2l_lib._assign, {"cpu": [], "cuda": []}
+        out3 = {}
+        try:
+            for d in ("cpu", "cuda"):
+                def spy(x, c, *rest, _d=d):
+                    lab = inner(x, c, *rest)
+                    calls[_d].append((c.cpu(), lab.cpu()))
+                    return lab
+                s2l_lib._assign = spy
+                t0 = time.perf_counter()
+                out3[d] = (summarize_s2l(src3, dst3, v3, target_frac=0.3, seed=0, device=d),
+                           time.perf_counter() - t0)
+        finally:
+            s2l_lib._assign = inner
+        (rc, wc), (rg, wg) = out3["cpu"], out3["cuda"]
+        lab_c, lab_g = rc.node2super, rg.node2super.cpu()
+        share = float((lab_c == lab_g).double().mean())
+        first = next((i for i, (a, b) in enumerate(zip(calls["cpu"], calls["cuda"]))
+                      if not torch.equal(a[1], b[1])), None)
+        gap = "none (every assignment equal)"
+        if first is not None:
+            (c_c, a_c), (c_g, a_g) = calls["cpu"][first], calls["cuda"][first]
+            x3 = s2l_lib.project_rows(src3, dst3, v3, max(int(np.ceil(np.log2(v3))) * 2, 8), 0)
+            row = int(torch.nonzero(a_c != a_g)[0])
+            dist = [float(((x3[row].astype(np.float64) - c_c[j].double().numpy()) ** 2).sum())
+                    for j in (int(a_c[row]), int(a_g[row]))]
+            gap = (f"assignment {first} (centers equal: {torch.equal(c_c, c_g)}), "
+                   f"{int((a_c != a_g).sum())} rows differ; row {row}: float64 distances "
+                   f"{dist[0]!r} (CPU's label) and {dist[1]!r} (card's), relative gap "
+                   f"{abs(dist[0] - dist[1]) / max(dist):.3g}")
+        rel3 = {k: abs(getattr(rg, k) - getattr(rc, k)) / abs(getattr(rc, k))
+                for k in ("re1", "size_bits")}
+        log(f"12c S2L email-enron scale 0.25 (V={v3}), card against CPU: labels equal "
+            f"{share:.6f}; {len(calls['cpu'])} and {len(calls['cuda'])} assignments; first "
+            f"difference: {gap}; re1 CPU {rc.re1!r} card {rg.re1!r}, size_bits CPU "
+            f"{rc.size_bits!r} card {rg.size_bits!r}, relative differences {rel3}; walls CPU "
+            f"{wc:.2f} s, card {wg:.2f} s")
+        if max(rel3.values()) > 0.01:
+            errors.append(f"12c: RE1 or size beyond 1% of the CPU's: {rel3}")
+
+        # (d) the paper's Fig. 4 point: SSumM against k-Gs and SAA-Gs at equal size
+        src4, dst4, v4 = generate("ego-facebook", seed=1, scale=0.1)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ss = summarize(src4, dst4, v4, SummaryConfig(T=10, k_frac=0.3, seed=1), device="cuda")
+        torch.cuda.synchronize()
+        ss_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        ctx["baseline_counts"] = counts
+        kg = summarize_kgs(src4, dst4, v4, target_frac=0.3, seed=1, device="cuda")
+        sa = summarize_saa_gs(src4, dst4, v4, target_frac=0.3, seed=1, device="cuda")
+        for name, r, w in (("SSumM", ss, ss_s), ("k-Gs", kg, kg.wall_s),
+                           ("SAA-Gs", sa, sa.wall_s)):
+            log(f"12d {name}: relative size {r.size_bits / r.input_size_bits!r}, "
+                f"re1 {r.re1!r}, re2 {r.re2!r}, supernodes {r.num_supernodes}, wall {w:.3f} s")
+        log(f"12d SSumM launches {counts} over {ss.iterations_run} rounds")
+        if not ss.size_bits <= max(kg.size_bits, sa.size_bits):
+            errors.append("12d: SSumM's size exceeds both baselines'")
+        if not ss.re1 <= sa.re1 * 1.1:
+            errors.append("12d: SSumM's RE1 is above 1.1x SAA-Gs'")
+        if counts["merge_gain"] != ss.iterations_run or counts["pair_cost"] != ss.iterations_run:
+            errors.append(f"12d: launch counts {counts} != one per round")
+        for k in ("merge_gain", "pair_cost"):
+            smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
+                "baselines comparison, SSumM side"] = counts[k]
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("12 baselines", phase_baselines)
+
+    # ---- 13. LM serving at qwen2.5-14B's full width --------------------------
+    def phase_lm():
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import BatchServer, Request
+        from repro_torch.models.api import build_model
+        from repro_torch.models.common import param_bytes, tree_to
+        from repro_torch.models.transformer import kv_cache_bytes
+        errors = []
+        full = get_config("qwen2_5_14b")
+        # (a) numerics: full width, 2 layers, float32, TF32 off
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+        model = build_model(cfg, "cuda")
+        params = model.init(0)
+        b, n = 2, 16
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, n)),
+                                 device=dev)
+        fwd = model.forward(params, {"tokens": tokens})[0]
+        cpu_params = tree_to(params, "cpu")
+        want = build_model(cfg, "cpu").forward(cpu_params, {"tokens": tokens.cpu()})[0]
+        got = fwd.cpu()
+        fwd_err = float((got - want).abs().max())
+        fwd_ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+        cache = model.init_cache(b, n)
+        dec_err = 0.0
+        dec_ok = True
+        for t in range(n):
+            lg, cache = model.serve_step(params, {"token": tokens[:, t], "pos": torch.tensor(t),
+                                                  "cache": cache})
+            dec_err = max(dec_err, float((lg - fwd[:, t]).abs().max()))
+            dec_ok &= torch.allclose(lg, fwd[:, t], rtol=1e-3, atol=1e-3)
+        log(f"13a qwen2.5-14B full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), 2 layers, float32, TF32 off, "
+            f"tokens [{b}, {n}]: forward card vs CPU max abs diff {fwd_err:.3g} "
+            f"(|logits| max {float(want.abs().max()):.3g}); decode vs forward on the card "
+            f"max abs diff {dec_err:.3g}; both held to rtol 1e-3, atol 1e-3")
+        if not fwd_ok:
+            errors.append("13a: forward logits card vs CPU beyond tolerance")
+        if not dec_ok:
+            errors.append("13a: decode logits vs forward beyond tolerance")
+        del model, params, cpu_params, fwd, want, got, cache
+        torch.cuda.empty_cache()
+
+        # (b) service: the full 48-layer bfloat16 model through BatchServer
+        slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_model(full, "cuda")
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pbytes = param_bytes(params)
+        kv = kv_cache_bytes(full, slots, max_len)
+        bound_ms = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32) for _ in range(nreq)]
+
+        def serve(nslots):
+            server = BatchServer(full, slots=nslots, max_len=max_len, params=params,
+                                 device="cuda")
+            for rid, pr in enumerate(prompts):
+                server.submit(Request(rid=rid, prompt=pr, max_new=gen_len))
+            t0 = time.perf_counter()
+            while server.step():
+                pass
+            wall = time.perf_counter() - t0
+            return server, {r.rid: list(r.out) for r in server.done}, wall
+
+        runs = [serve(slots) for _ in range(2)]
+        (s0, out0, w0), (s1, out1, w1) = runs
+        ntok = sum(len(v) for v in out0.values())
+        steps = np.array(s0.step_s + s1.step_s) * 1e3
+        med = float(np.median(steps))
+        peak = torch.cuda.max_memory_allocated()
+        # device busy share of three decode steps, under torch.profiler
+        busy = None
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        tok = torch.zeros(slots, dtype=torch.int64, device=dev)
+        pos = torch.arange(slots, device=dev)
+        cache = s0.cache
+        try:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    lg, cache = model.serve_step(params, {"token": tok, "pos": pos,
+                                                          "cache": cache})
+                    torch.argmax(lg, dim=-1).cpu()
+                prof_wall = (time.perf_counter() - t0) * 1e3 / 3
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type.name == "CUDA") / 1e3 / 3
+        except RuntimeError as exc:
+            log(f"13b profiler failed ({exc}): device busy time not measured")
+        # every request again, one at a time in 1 slot
+        solo_server, solo, solo_wall = serve(1)
+        same_solo = sum(a == b for rid in solo for a, b in zip(out0[rid], solo[rid]))
+        log(f"13b qwen2.5-14B, {full.n_layers} layers, bfloat16: {pbytes} parameter bytes initialised on "
+            f"the card in {init_s:.2f} s; {nreq} requests, {slots} slots, prompt {prompt_len}, "
+            f"gen {gen_len}, max_len {max_len}: runs {w0:.3f} s and {w1:.3f} s, "
+            f"{len(s0.step_s)} decode steps a run, median step {med:.3f} ms (p10 "
+            f"{np.percentile(steps, 10):.3f}, p90 {np.percentile(steps, 90):.3f}); "
+            f"{ntok / w0:.2f} and {ntok / w1:.2f} tokens/s; peak {peak / 2**30:.2f} GiB; step "
+            f"bound {bound_ms:.3f} ms (parameters {pbytes} + KV cache {kv} bytes at 3.35 TB/s), "
+            f"{100 * bound_ms / med:.1f}% of it")
+        if busy is not None:
+            log(f"13b profiled decode step: wall {prof_wall:.3f} ms (profiler on), device busy "
+                f"{busy:.3f} ms, idle share {100 * (1 - busy / prof_wall):.1f}%")
+        log(f"13b the two runs' tokens equal: {out0 == out1}; all {nreq} requests in 1 slot "
+            f"({solo_wall:.2f} s, not asserted): {same_solo}/{ntok} tokens equal, "
+            f"{sum(out0[r] == solo[r] for r in out0)}/{nreq} requests whole")
+        if out0 != out1:
+            errors.append("13b: two runs' tokens differ")
+        if ntok != nreq * gen_len:
+            errors.append(f"13b: {ntok} tokens, not {nreq * gen_len}")
+        del model, params, runs, s0, s1, solo_server, cache
+        torch.cuda.empty_cache()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("13 LM serving", phase_lm)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -1864,6 +2147,7 @@ def run(tmp: str) -> int:
         by_path["summarize"] = ctx["main_counts"][k]
         by_path["queries"] = ctx["serve_counts"][k]
         by_path.setdefault("edge-sharded", 0)
+        by_path["baselines comparison, SSumM side"] = ctx["baseline_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

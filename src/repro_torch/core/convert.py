@@ -15,7 +15,10 @@ implementations and a round compared:
   * :func:`group_tables_from_numpy` — a reference ``GroupTables`` as the
     port's;
   * :func:`tree_from_numpy` — a reference pytree of numpy arrays (bfloat16
-    leaves included) as the port's tree of tensors, in jax's flatten order.
+    leaves included) as the port's tree of tensors, in jax's flatten order;
+  * :func:`lm_params_from_numpy` — a reference LM parameter tree (the values
+    of ``split_tree``, as numpy arrays) as the port's, checked leaf for leaf
+    against the shapes the port's model takes.
 """
 
 from __future__ import annotations
@@ -132,3 +135,25 @@ def tree_from_numpy(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(x, device) for x in tree)
     return None if tree is None else _tensor_from_numpy(tree, device)
+
+
+def lm_params_from_numpy(tree, cfg, device):
+    """The reference's LM parameters (``split_tree(model.init_px(key))[0]``
+    as numpy arrays) as the port's parameter tree on ``device``, each leaf in
+    its own type. Raises on a missing or extra leaf or a shape the port's
+    model for ``cfg`` does not take."""
+    from repro_torch.models.transformer import param_shapes
+
+    def walk(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"lm_params_from_numpy: {path or 'the tree'} holds {got}, "
+                                 f"the port's {cfg.name} takes {sorted(want)}")
+            return {k: walk(node[k], want[k], f"{path}/{k}") for k in want}
+        if tuple(np.shape(node)) != tuple(want):
+            raise ValueError(f"lm_params_from_numpy: {path} has shape {np.shape(node)}, "
+                             f"the port's {cfg.name} takes {tuple(want)}")
+        return _tensor_from_numpy(node, device)
+
+    return walk(tree, param_shapes(cfg), "")

@@ -1,0 +1,116 @@
+"""GQA/MQA/SWA attention with train/prefill and cached-decode paths.
+
+Port of ``repro/models/attention.py`` (self-attention; the encoder-decoder
+``cross_attention`` and ``project_cross_kv`` come with that family; the
+reference's ``_mask`` is called nowhere there and is left out).
+Layouts are the reference's:
+
+    q        [B, S, H, hd]          k/v  [B, T, K, hd]
+    scores   [B, K, g, S, T]        (g = H // K query groups)
+
+Softmax runs in float32. The decode path writes the new token's K/V into
+the cache in place at each slot's own position.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import dense_init, rope
+from repro_torch.models.flash import blockwise_attention
+
+NEG_INF = -1e30
+
+
+def init_attention(gen, cfg, d_model=None, dtype=torch.bfloat16, bias=None, device="cuda"):
+    d = d_model or cfg.d_model
+    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    use_bias = cfg.qkv_bias if bias is None else bias
+    p = {
+        "wq": dense_init(gen, (d, h, hd), 0, dtype, device),
+        "wk": dense_init(gen, (d, k, hd), 0, dtype, device),
+        "wv": dense_init(gen, (d, k, hd), 0, dtype, device),
+        "wo": dense_init(gen, (h, hd, d), None, dtype, device),
+    }
+    if use_bias:
+        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((k, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((k, hd), dtype=dtype, device=device)
+    return p
+
+
+def _proj(x, w):
+    """``einsum("bsd,dhx->bshx")`` as one matmul over the flattened heads."""
+    d, h, hd = w.shape
+    return torch.matmul(x, w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+
+
+def _project_qkv(p, x):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+def _out(p, o):
+    """``einsum("bsy,yd->bsd")`` with the heads of ``wo`` flattened."""
+    return torch.matmul(o, p["wo"].reshape(-1, p["wo"].shape[-1]))
+
+
+def mha(q, k, v, mask):
+    """Grouped attention core; softmax in f32."""
+    b, s, h, hd = q.shape
+    kk = k.shape[2]
+    g = h // kk
+    q = q.reshape(b, s, kk, g, hd)
+    scores = torch.einsum("bskgx,btkx->bkgst", q, k).float()
+    scores = scores / float(np.sqrt(np.float32(hd)))
+    scores = scores + mask  # broadcast [S, T] or [B, 1, 1, 1, T]
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkx->bskgx", w.to(v.dtype), v)
+    return out.reshape(b, s, h * hd)
+
+
+def attention(p, x, cfg, *, positions=None, causal: bool = True, window=None,
+              use_rope: bool = True):
+    """Full-sequence attention (train / prefill): blockwise online softmax
+    (models/flash.py; full scores are never materialized)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x)
+    pos = positions if positions is not None else torch.arange(s, device=x.device)
+    if use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    out = blockwise_attention(q, k, v, causal=causal, window=window)
+    return _out(p, out.reshape(b, s, -1))
+
+
+def attention_decode(p, x, cfg, cache_k, cache_v, pos, *, window=None,
+                     use_rope: bool = True):
+    """One-token decode against a pre-filled KV cache.
+
+    cache_k/v: [B, T, K, hd], written in place at each slot's position.
+    ``pos`` may be a scalar (lockstep decode) or an int tensor [B] (continuous
+    batching: each slot advances independently). Returns
+    (out [B, 1, d], cache_k, cache_v)."""
+    b, t, kk, hd = cache_k.shape
+    q, k_new, v_new = _project_qkv(p, x)  # S = 1
+    posv = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(b)  # [B]
+    if use_rope:
+        q = rope(q, posv[:, None], cfg.rope_theta)
+        k_new = rope(k_new, posv[:, None], cfg.rope_theta)
+    idx = torch.arange(b, device=x.device)
+    cache_k[idx, posv] = k_new[:, 0]
+    cache_v[idx, posv] = v_new[:, 0]
+    pos_k = torch.arange(t, device=x.device)
+    # per-sequence causal (+ window) mask: [B, 1, 1, 1, T] broadcast over
+    # the [B, K, g, S, T] score layout
+    m = pos_k[None, :] <= posv[:, None]
+    if window is not None:
+        m &= (posv[:, None] - pos_k[None, :]) < window
+    mask = torch.where(m, 0.0, NEG_INF)[:, None, None, None, :]
+    out = mha(q, cache_k, cache_v, mask)
+    return _out(p, out), cache_k, cache_v

@@ -1,0 +1,138 @@
+"""Shared model building blocks: initialisers, norms, RoPE, gated MLPs.
+
+Port of ``repro/models/common.py``. Parameters are plain nested dicts of
+tensors with the reference's keys, so a reference parameter tree carries
+over leaf for leaf (:func:`repro_torch.core.convert.lm_params_from_numpy`).
+The reference's ``Px`` leaves and logical sharding axes serve its mesh; the
+port has no mesh and leaves them out. Random draws come from an explicit
+``torch.Generator``: one float32 tensor at a time, scaled, then cast, so a
+full-width model is never held in float32 whole.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def param_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return int(tree.numel())
+
+
+def tree_to(tree, device):
+    """A copy of a parameter or cache tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    return int(tree.numel() * tree.element_size())
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+def dense_init(gen, shape, in_axis: int | None = 0, dtype=torch.bfloat16,
+               device="cuda") -> torch.Tensor:
+    fan_in = shape[in_axis] if in_axis is not None else int(np.prod(shape[:-1]))
+    return _normal(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype, device)
+
+
+def embed_init(gen, shape, dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    return _normal(gen, shape, 0.02, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# norms (params in f32, math in f32, cast back)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def init_norm(d, kind: str = "rmsnorm", device="cuda"):
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
+    return {
+        "scale": torch.ones(d, dtype=torch.float32, device=device),
+        "bias": torch.zeros(d, dtype=torch.float32, device=device),
+    }
+
+
+def apply_norm(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"], eps)
+    return layernorm(x, p["scale"], p["bias"], eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """Apply RoPE, rotating halves. x: [..., S, H, hd]; positions: broadcastable
+    to [..., S]. Computes in float32 and casts back."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    inv = torch.pow(float(np.float32(theta)), -freq)  # float32, no host-to-card copy
+    ang = positions.to(torch.float32)[..., None] * inv  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, d, f, dtype=torch.bfloat16, device="cuda"):
+    return {
+        "wi": dense_init(gen, (d, f), 0, dtype, device),
+        "wg": dense_init(gen, (d, f), 0, dtype, device),
+        "wo": dense_init(gen, (f, d), 0, dtype, device),
+    }
+
+
+def apply_mlp(p, x, act: str = "silu"):
+    h = torch.matmul(x, p["wi"])
+    g = torch.matmul(x, p["wg"])
+    if act == "gelu":  # jax.nn.gelu's default: the tanh approximation
+        h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * h
+    else:
+        h = F.silu(g.float()).to(x.dtype) * h
+    return torch.matmul(h, p["wo"])

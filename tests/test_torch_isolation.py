@@ -48,7 +48,15 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.core.query_engine", "repro_torch.launch.query_serve",
               "repro_torch.kernels.segment_sum", "repro_torch.core.distributed",
               "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.graphs.feed",
-              "repro_torch.dist.compress", "repro_torch.launch.mesh"):
+              "repro_torch.dist.compress", "repro_torch.launch.mesh",
+              "repro_torch.baselines", "repro_torch.baselines.common",
+              "repro_torch.baselines.kgs", "repro_torch.baselines.s2l",
+              "repro_torch.baselines.saa_gs", "repro_torch.configs",
+              "repro_torch.configs.base", "repro_torch.configs.qwen2_5_14b",
+              "repro_torch.configs.ssumm_paper", "repro_torch.models",
+              "repro_torch.models.common", "repro_torch.models.flash",
+              "repro_torch.models.attention", "repro_torch.models.transformer",
+              "repro_torch.models.api", "repro_torch.launch.serve"):
         assert m in res["modules"]
 
 
@@ -133,6 +141,51 @@ def test_query_server_without_device_refuses_the_cpu():
 
     with pytest.raises(RuntimeError, match="device"):
         query_serve.main(["--dataset", "ego-facebook", "--scale", "0.02", "--T", "2"])
+
+
+_SERVE_AND_BASELINES = r"""
+import json, sys
+import numpy as np
+from repro_torch.baselines import summarize_kgs, summarize_s2l, summarize_saa_gs
+from repro_torch.launch import serve
+src, dst = np.arange(40) % 13, (np.arange(40) * 7 + 3) % 13
+keep = src != dst
+src, dst = np.minimum(src, dst)[keep], np.maximum(src, dst)[keep]
+sizes = [f(src, dst, 13, device="cpu").num_supernodes
+         for f in (summarize_kgs, summarize_s2l, summarize_saa_gs)]
+res = serve.main(["--smoke", "--device", "cpu", "--requests", "2", "--slots", "2",
+                  "--prompt-len", "3", "--gen-len", "2", "--max-len", "16"])
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "repro.")) or k == "repro")
+print(json.dumps({"sizes": sizes, "tokens": res["tokens"], "bad": bad}))
+"""
+
+
+def test_baselines_and_lm_serving_run_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _SERVE_AND_BASELINES], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [] and res["tokens"] == 4
+    assert all(2 <= n <= 13 for n in res["sizes"])
+
+
+def test_lm_server_and_baselines_without_device_refuse_the_cpu():
+    _no_cuda()
+    from repro_torch.baselines import evaluate_partition, summarize_s2l
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+
+    src, dst = np.array([0, 1, 2]), np.array([1, 2, 3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--requests", "1", "--slots", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(get_smoke_config("qwen2_5_14b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        summarize_s2l(src, dst, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_partition(src, dst, 4, np.arange(4))
 
 
 def test_launcher_on_the_cpu_prints_the_reference_keys(capsys):
