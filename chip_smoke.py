@@ -34,8 +34,9 @@ card and CPU runs. Phases, one line each or a few:
      requests of all seven kinds in 64 slots; each kernel of the path
      launched (the summarizer's once per round);
   7b. queries, card against CPU: engines on phase 4's summary serve one
-     workload, the card's twice (equal digests), the answers agree at the
-     port's test tolerances, equal PageRank steps; the block summary's sizes;
+     workload, the card's all 4096 requests twice (equal digests), the CPU's
+     its first 1024; those answers agree at the port's test tolerances,
+     equal PageRank steps; the block summary's sizes;
   7c. the fixed-order sums (CUDA): segment_sum against plain and numpy on
      test shapes, rows around the warp threshold and the block CSR of phase
      7b; ordered_sum against plain on empty and ragged rows and the query
@@ -93,12 +94,26 @@ card and CPU runs. Phases, one line each or a few:
      card from a seed, 8 requests through ``BatchServer`` (8 slots, prompt
      32, gen 32, max_len 128) twice, the same tokens; init time, median
      decode step against its bytes bound, tokens/s, peak memory, three
-     profiled steps; the share of tokens equal to 1 slot (not asserted).
+     profiled steps; the share of tokens equal to 1 slot (not asserted);
+  14. the MoE family's serving path (no hand kernel on it: the reference's
+     MoE is plain jnp): (a) moonshot-v1-16b-a3b at full width, 2 layers,
+     float32, TF32 off, capacity factor 16: forward on the card against the
+     CPU, decode against forward (rtol and atol 1e-3), no record dropped on
+     either side; (b) granite-moe-3b-a800m, all 32 bfloat16 layers, 48 padded
+     experts, initialised on the card from a seed, 8 requests through
+     ``BatchServer`` as in 13b, twice, the same tokens; init time, median
+     decode step against its bytes bound and against the bytes of the experts
+     a steady step routes to, tokens/s, peak memory, three profiled steps,
+     the share of tokens equal to 1 slot (not asserted), the hand kernels'
+     launches on the path (none); (c) granite's MoE block at full width,
+     float32, x [8, 128, 1536] at capacity factor 1.25 (records dropped): two
+     card runs bit-identical (the fixed-order combine), the drop fraction and
+     the difference against CPU copies.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a and 12d), and as the last line
+10, 11a, 12d and 14b), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -149,6 +164,7 @@ MULTIHOST_EXACT_KEYS = ("V", "E", "mode", "size_bits", "size_bits_before_sparsif
                         "superedges_dropped")
 WIRE_SHAPES = {"w": (33, 7), "b": (13,), "s": ()}  # tests/torch_wire_check.py's
 SERVE_REQUESTS = 4096
+CPU_SERVE_REQUESTS = 1024  # phase 7b: the CPU engine serves the stream's first 1024
 SERVE_SLOTS = 64
 
 
@@ -423,6 +439,33 @@ def partition_coverage(bs, t, p: int) -> list[str]:
         if not ok:
             errs.append(f"{tag}: rank {q}'s halo does not cover its rows' references")
     return errs
+
+
+class MoeRecorder:
+    """Records every MoE block call (its input and aux) while it is entered:
+    ``repro_torch.models.moe.apply_moe`` is wrapped, the transformer calls it
+    through the module. Used outside every timed run."""
+
+    def __init__(self, moe_lib):
+        self.moe_lib = moe_lib
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        self.orig = orig = self.moe_lib.apply_moe
+
+        def recorded(p, x, cfg, capacity_factor=None):
+            y, aux = orig(p, x, cfg, capacity_factor)
+            self.calls.append({"p": p, "x": x, "aux": aux})
+            return y, aux
+
+        self.moe_lib.apply_moe = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_lib.apply_moe = self.orig
+
+    def drop_fracs(self) -> list[float]:
+        return [float(c["aux"]["moe_drop_frac"]) for c in self.calls]
 
 
 def fmt_ms(x) -> str:
@@ -1038,17 +1081,19 @@ def run(tmp: str) -> int:
         reqs = random_workload(np.random.default_rng(0), v, SERVE_REQUESTS, kinds)
         draw_s = time.perf_counter() - t0
 
-        def run(engine):
+        def run(engine, stream):
             server = QueryServer(engine, slots=SERVE_SLOTS)
             torch.cuda.reset_peak_memory_stats()
-            wall = serve(server, [dataclasses.replace(r) for r in reqs])
+            wall = serve(server, [dataclasses.replace(r) for r in stream])
             return ({r.rid: r.answer for r in server.done}, answers_digest(server.done), wall,
                     torch.cuda.max_memory_allocated())
 
-        a1, d1, w1, serve_peak = run(card)
+        a1, d1, w1, serve_peak = run(card, reqs)
         card2 = QueryEngine(dataclasses.replace(res), device="cuda")  # built anew
-        a2, d2, w2, _ = run(card2)
-        a3, d3, w3, _ = run(cpu)
+        a2, d2, w2, _ = run(card2, reqs)
+        # the CPU serves the stream's first CPU_SERVE_REQUESTS (an answer does
+        # not depend on the batch it is served in)
+        a3, d3, w3, _ = run(cpu, reqs[:CPU_SERVE_REQUESTS])
         tri = card.triangle_density()
         log(f"block summary: S={bs.num_blocks} nnz={bs.nnz} D={bs.max_row_nnz()} "
             f"rows with entries {int((bs.indptr[1:] > bs.indptr[:-1]).sum())}; "
@@ -1059,21 +1104,28 @@ def run(tmp: str) -> int:
             f"{base / 2**20:.1f} MiB already held, block summary resident "
             f"{resident / 2**20:.1f} MiB; CPU {cpu_build_s:.3f} s; workload drawn in "
             f"{draw_s:.1f} s; serve {SERVE_REQUESTS} requests: card {w1:.2f} s and {w2:.2f} s "
-            f"(peak memory while serving {serve_peak / 2**30:.2f} GiB), CPU {w3:.2f} s")
+            f"(peak memory while serving {serve_peak / 2**30:.2f} GiB); the first "
+            f"{CPU_SERVE_REQUESTS}: CPU {w3:.2f} s")
         worst = {}
         kind_of = {r.rid: k for r in reqs for k, n in KIND_NAMES.items() if n == r.kind}
+        if (len(a1), len(a3)) != (SERVE_REQUESTS, CPU_SERVE_REQUESTS):
+            raise AssertionError(f"served {len(a1)} requests on the card and {len(a3)} on the "
+                                 f"CPU, not {SERVE_REQUESTS} and {CPU_SERVE_REQUESTS}")
         for rid, got in a1.items():
-            want = a3[rid]
-            rtol, atol = QUERY_TOL[kind_of[rid]]
             if not np.isfinite(got):
                 raise AssertionError(f"request {rid} ({kind_of[rid]}): answer {got}")
+        for rid, want in a3.items():
+            got = a1[rid]
+            rtol, atol = QUERY_TOL[kind_of[rid]]
             diff = abs(got - want)
             w = worst.setdefault(kind_of[rid], [0.0, 0])
             w[0] = max(w[0], diff)
             w[1] += diff > atol + rtol * abs(want)
         log("card against CPU, max abs difference per kind: " + ", ".join(
             f"{k} {w[0]:.3g}" for k, w in sorted(worst.items())))
-        log(f"digests: card {d1}, card again {d2}, CPU {d3}; card == CPU: {d1 == d3}")
+        same = sum(a1[rid] == want for rid, want in a3.items())
+        log(f"digests: card {d1}, card again {d2}; CPU's {CPU_SERVE_REQUESTS} {d3}, "
+            f"{same} of them equal to the card's bit for bit")
         if d1 != d2:
             raise AssertionError("two card runs of one workload gave different answers")
         bad = {k: w[1] for k, w in worst.items() if w[1]}
@@ -2135,6 +2187,197 @@ def run(tmp: str) -> int:
 
     smoke.phase("13 LM serving", phase_lm)
 
+    # ---- 14. the MoE family's serving path -----------------------------------
+    def phase_moe():
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import BatchServer, Request
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.models.api import build_model
+        from repro_torch.models.common import param_bytes, tree_to
+        from repro_torch.models.transformer import kv_cache_bytes
+        errors = []
+        # (a) numerics: moonshot-v1-16b-a3b at full width, 2 layers, float32,
+        # TF32 off, capacity factor 16 (the forward drops nothing, as decode)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        full = get_config("moonshot_v1_16b_a3b")
+        cfg = dataclasses.replace(full, n_layers=2, dtype="float32",
+                                  moe=dataclasses.replace(full.moe, capacity_factor=16.0))
+        model = build_model(cfg, "cuda")
+        params = model.init(0)
+        pbytes_a = param_bytes(params)
+        b, n = 2, 16
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, n)),
+                                 device=dev)
+        with MoeRecorder(moe_lib) as rec_card:
+            fwd, aux_card = model.forward(params, {"tokens": tokens})
+        cpu_params = tree_to(params, "cpu")
+        with MoeRecorder(moe_lib) as rec_cpu:
+            want, aux_cpu = build_model(cfg, "cpu").forward(cpu_params, {"tokens": tokens.cpu()})
+        got = fwd.cpu()
+        fwd_err = float((got - want).abs().max())
+        fwd_ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+        cache = model.init_cache(b, n)
+        dec_err, dec_ok = 0.0, True
+        with MoeRecorder(moe_lib) as rec_dec:
+            for t in range(n):
+                lg, cache = model.serve_step(params, {"token": tokens[:, t],
+                                                      "pos": torch.tensor(t), "cache": cache})
+                dec_err = max(dec_err, float((lg - fwd[:, t]).abs().max()))
+                dec_ok &= torch.allclose(lg, fwd[:, t], rtol=1e-3, atol=1e-3)
+        drops = {"card": rec_card.drop_fracs(), "CPU": rec_cpu.drop_fracs(),
+                 "decode": rec_dec.drop_fracs()}
+        log(f"14a moonshot-v1-16b-a3b full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.moe.num_experts} "
+            f"experts top-{cfg.moe.top_k}), 2 layers, float32, TF32 off, capacity factor 16, "
+            f"{pbytes_a} parameter bytes, tokens [{b}, {n}]: forward card vs CPU max abs diff "
+            f"{fwd_err:.3g} (|logits| max {float(want.abs().max()):.3g}); decode vs forward on "
+            f"the card max abs diff {dec_err:.3g}; both held to rtol 1e-3, atol 1e-3; moe_aux "
+            f"card {float(aux_card['moe_aux']):.6g}, CPU {float(aux_cpu['moe_aux']):.6g}; drop "
+            f"fractions forward card {drops['card']}, CPU {drops['CPU']}, decode max "
+            f"{max(drops['decode'])}")
+        if not fwd_ok:
+            errors.append("14a: forward logits card vs CPU beyond tolerance")
+        if not dec_ok:
+            errors.append("14a: decode logits vs forward beyond tolerance")
+        if any(f != 0.0 for v in drops.values() for f in v):
+            errors.append(f"14a: records dropped at capacity factor 16: {drops}")
+        del model, params, cpu_params, fwd, want, got, cache, rec_card, rec_cpu, rec_dec
+        torch.cuda.empty_cache()
+
+        # (b) service: granite-moe-3b-a800m, 32 bfloat16 layers, through BatchServer
+        full = get_config("granite_moe_3b_a800m")
+        slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_model(full, "cuda")
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pbytes = param_bytes(params)
+        kv = kv_cache_bytes(full, slots, max_len)
+        bound_ms = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32) for _ in range(nreq)]
+
+        def serve(nslots):
+            server = BatchServer(full, slots=nslots, max_len=max_len, params=params,
+                                 device="cuda")
+            for rid, pr in enumerate(prompts):
+                server.submit(Request(rid=rid, prompt=pr, max_new=gen_len))
+            t0 = time.perf_counter()
+            while server.step():
+                pass
+            wall = time.perf_counter() - t0
+            return server, {r.rid: list(r.out) for r in server.done}, wall
+
+        ops.reset_launch_counts()
+        runs = [serve(slots) for _ in range(2)]
+        ctx["moe_counts"] = ops.launch_counts()
+        (s0, out0, w0), (s1, out1, w1) = runs
+        ntok = sum(len(v) for v in out0.values())
+        steps = np.array(s0.step_s + s1.step_s) * 1e3
+        med = float(np.median(steps))
+        peak = torch.cuda.max_memory_allocated()
+        # one steady decode step of the 8 requests (their last tokens, the
+        # cache of run 1) recorded: the experts it routes to, layer by layer
+        tok = torch.as_tensor([out0[r][-1] for r in range(nreq)], dtype=torch.int64,
+                              device=dev)
+        pos = torch.full((slots,), prompt_len + gen_len - 1, dtype=torch.int64, device=dev)
+        cache = s0.cache
+        d, f = full.d_model, full.d_ff
+        expert_bytes = 3 * d * f * 2  # wi, wg, wo of one expert, bfloat16
+        e_pad = full.moe.experts_padded(moe_lib.EP)
+        with MoeRecorder(moe_lib) as rec:
+            model.serve_step(params, {"token": tok, "pos": pos, "cache": cache})
+        used = [int(torch.unique(moe_lib.route(c["p"]["router"], c["x"].reshape(-1, d),
+                                               full.moe.num_experts, full.moe.top_k)[2]).numel())
+                for c in rec.calls]
+        routed = pbytes - full.n_layers * e_pad * expert_bytes + sum(used) * expert_bytes
+        routed_ms = (routed + kv) / HBM_BYTES_PER_S * 1e3
+        # device busy share of three decode steps, under torch.profiler
+        busy = None
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        try:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    lg, cache = model.serve_step(params, {"token": tok, "pos": pos,
+                                                          "cache": cache})
+                    torch.argmax(lg, dim=-1).cpu()
+                prof_wall = (time.perf_counter() - t0) * 1e3 / 3
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type.name == "CUDA") / 1e3 / 3
+        except RuntimeError as exc:
+            log(f"14b profiler failed ({exc}): device busy time not measured")
+        # every request again, one at a time in 1 slot
+        solo_server, solo, solo_wall = serve(1)
+        same_solo = sum(a == b for rid in solo for a, b in zip(out0[rid], solo[rid]))
+        log(f"14b granite-moe-3b-a800m, {full.n_layers} layers, bfloat16 ({e_pad} padded experts, "
+            f"float32 routers and norms): {pbytes} parameter bytes initialised on the card in "
+            f"{init_s:.2f} s; {nreq} requests, {slots} slots, prompt {prompt_len}, gen {gen_len}, "
+            f"max_len {max_len}: runs {w0:.3f} s and {w1:.3f} s, {len(s0.step_s)} decode steps "
+            f"a run, median step {med:.3f} ms (p10 {np.percentile(steps, 10):.3f}, p90 "
+            f"{np.percentile(steps, 90):.3f}); {ntok / w0:.2f} and {ntok / w1:.2f} tokens/s; "
+            f"peak {peak / 2**30:.2f} GiB; step bound {bound_ms:.3f} ms (parameters {pbytes} + "
+            f"KV cache {kv} bytes at 3.35 TB/s; every expert's bucket is multiplied), "
+            f"{100 * bound_ms / med:.1f}% of it; a steady step routes to {min(used)}-"
+            f"{max(used)} of {full.moe.num_experts} experts a layer ({sum(used)} in all): "
+            f"{routed} bytes with the KV cache {routed + kv}, {routed_ms:.3f} ms at 3.35 TB/s; "
+            f"launches of the hand kernels over both runs {ctx['moe_counts']}")
+        if busy is not None:
+            log(f"14b profiled decode step: wall {prof_wall:.3f} ms (profiler on), device busy "
+                f"{busy:.3f} ms, idle share {100 * (1 - busy / prof_wall):.1f}%")
+        log(f"14b the two runs' tokens equal: {out0 == out1}; all {nreq} requests in 1 slot "
+            f"({solo_wall:.2f} s, not asserted): {same_solo}/{ntok} tokens equal, "
+            f"{sum(out0[r] == solo[r] for r in out0)}/{nreq} requests whole")
+        if out0 != out1:
+            errors.append("14b: two runs' tokens differ")
+        if ntok != nreq * gen_len:
+            errors.append(f"14b: {ntok} tokens, not {nreq * gen_len}")
+        del model, params, runs, s0, s1, solo_server, cache, rec
+        torch.cuda.empty_cache()
+
+        # (c) determinism of the block: granite's MoE at full width, float32,
+        # a prefill-shaped input at the default capacity factor (records dropped)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        p = moe_lib.init_moe(gen, full, torch.float32, dev)
+        x = (torch.randn((8, 128, d), generator=gen, device=dev)
+             + torch.randn((d,), generator=gen, device=dev))  # one shared direction
+        y1, aux1 = moe_lib.apply_moe(p, x, full)
+        y2, aux2 = moe_lib.apply_moe(p, x, full)
+        same_bits = torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+        block_ms = time_cuda(torch, lambda: moe_lib.apply_moe(p, x, full), launches=5, batches=3)
+        p_cpu = tree_to(p, "cpu")
+        y_cpu, aux_cpu = moe_lib.apply_moe(p_cpu, x.cpu(), full)
+        e_card = moe_lib.route(p["router"], x.reshape(-1, d), full.moe.num_experts,
+                               full.moe.top_k)[2].cpu()
+        e_cpu = moe_lib.route(p_cpu["router"], x.cpu().reshape(-1, d), full.moe.num_experts,
+                              full.moe.top_k)[2]
+        n_tok = x.shape[0] * x.shape[1]
+        cap = max(int(full.moe.top_k * n_tok * full.moe.capacity_factor / full.moe.num_experts), 1)
+        log(f"14c granite's MoE block at full width, float32, x {list(x.shape)}, capacity factor "
+            f"{full.moe.capacity_factor} (capacity {cap}): two card runs bit-identical "
+            f"{same_bits}; drop fraction card {float(aux1['moe_drop_frac']):.6g}, CPU "
+            f"{float(aux_cpu['moe_drop_frac']):.6g}; max abs diff against CPU copies "
+            f"{float((y1.cpu() - y_cpu).abs().max()):.3g} (|y| max "
+            f"{float(y_cpu.abs().max()):.3g}); tokens routed to the same experts "
+            f"{int((e_card == e_cpu).all(dim=-1).sum())}/{n_tok}; the block {block_ms:.3f} ms "
+            f"on the card")
+        if not same_bits or float(aux1["moe_drop_frac"]) != float(aux2["moe_drop_frac"]):
+            errors.append("14c: two card runs of the MoE block differ")
+        if not float(aux1["moe_drop_frac"]) > 0:
+            errors.append("14c: no record dropped; the case is there to drop")
+        del p, p_cpu, x, y1, y2, y_cpu
+        torch.cuda.empty_cache()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("14 MoE serving", phase_moe)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -2148,6 +2391,7 @@ def run(tmp: str) -> int:
         by_path["queries"] = ctx["serve_counts"][k]
         by_path.setdefault("edge-sharded", 0)
         by_path["baselines comparison, SSumM side"] = ctx["baseline_counts"][k]
+        by_path["MoE serving (granite, phase 14b)"] = ctx["moe_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,9 @@ def tree_from_numpy(tree, device):
 def lm_params_from_numpy(tree, cfg, device):
     """The reference's LM parameters (``split_tree(model.init_px(key))[0]``
     as numpy arrays) as the port's parameter tree on ``device``, each leaf in
-    its own type. Raises on a missing or extra leaf or a shape the port's
-    model for ``cfg`` does not take."""
+    its own type (an MoE router and the norms stay float32 in a bfloat16
+    model). Dense and MoE trees alike. Raises on a missing or extra leaf or a
+    shape the port's model for ``cfg`` does not take."""
     from repro_torch.models.transformer import param_shapes
 
     def walk(node, want, path):

@@ -2,12 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b --smoke \
         --requests 8 --prompt-len 32 --gen-len 32 [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_3b_a800m ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot_v1_16b_a3b ...
 
-Port of ``repro/launch/serve.py`` for the dense family. The scheduler packs
+Port of ``repro/launch/serve.py`` for the dense and MoE families (gemma,
+qwen, danube, deepseek; granite-moe, moonshot). The scheduler packs
 requests into fixed slots, keeps a decode position per slot, refills a
 finished slot from the queue (continuous batching) and samples greedily;
 every token, prompt tokens included, goes through the model's decode step
-(``Model.serve_step``). It prints the reference's JSON result line plus
+(``Model.serve_step``). Empty slots decode token 0, as the reference's do;
+an MoE decode step is dropless, so they take no expert capacity from live
+slots. It prints the reference's JSON result line plus
 ``device``, ``decode_steps`` and the median decode step. The reference's
 mesh and sharding rules have no counterpart: the port serves on one device.
 It runs on the card unless ``--device cpu`` is given.

@@ -1,4 +1,4 @@
-"""Model API of the port: ``build_model(cfg, device)`` for the dense family.
+"""Model API of the port: ``build_model(cfg, device)`` for the dense and MoE families.
 
 Port of ``repro/models/api.py``'s serving half. :class:`Model` gives
 
@@ -9,9 +9,10 @@ Port of ``repro/models/api.py``'s serving half. :class:`Model` gives
     init_cache(batch, seq_len)        → decode cache (dict tree)
 
 on the model's device (``"cuda"`` unless the caller asks for the CPU).
-``loss`` and ``train_step`` come with the training slice. Only
-``family == "dense"`` builds here; every other family raises
-``NotImplementedError`` naming the ROADMAP Queue 1 entry that ports it.
+``loss`` and ``train_step`` come with the training slice. The dense and
+MoE families build here (the MoE block plugs into the transformer block, as
+in the reference); every other family raises ``NotImplementedError`` naming
+the ROADMAP Queue 1 entry that ports it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from repro_torch.models.common import DTYPES
 
 # ROADMAP Queue 1's entry for each family not ported yet.
 NOT_PORTED = {
-    "moe": "the MoE family (models/moe.py: granite, moonshot)",
     "hybrid": "the hybrid family (models/mamba2.py, models/zamba2.py)",
     "xlstm": "the xLSTM family (models/xlstm.py)",
     "encdec": "the encoder-decoder family (models/whisper.py, cross_attention)",
@@ -85,7 +85,7 @@ def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP Queue 1 lists "
             f"{NOT_PORTED.get(cfg.family, cfg.family)}")

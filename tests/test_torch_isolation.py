@@ -56,6 +56,7 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.configs.ssumm_paper", "repro_torch.models",
               "repro_torch.models.common", "repro_torch.models.flash",
               "repro_torch.models.attention", "repro_torch.models.transformer",
+              "repro_torch.models.moe",
               "repro_torch.models.api", "repro_torch.launch.serve"):
         assert m in res["modules"]
 
@@ -155,9 +156,12 @@ sizes = [f(src, dst, 13, device="cpu").num_supernodes
          for f in (summarize_kgs, summarize_s2l, summarize_saa_gs)]
 res = serve.main(["--smoke", "--device", "cpu", "--requests", "2", "--slots", "2",
                   "--prompt-len", "3", "--gen-len", "2", "--max-len", "16"])
+moe = serve.main(["--arch", "granite_moe_3b_a800m", "--smoke", "--device", "cpu",
+                  "--requests", "2", "--slots", "2", "--prompt-len", "3", "--gen-len", "2",
+                  "--max-len", "16"])
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "repro.")) or k == "repro")
-print(json.dumps({"sizes": sizes, "tokens": res["tokens"], "bad": bad}))
+print(json.dumps({"sizes": sizes, "tokens": [res["tokens"], moe["tokens"]], "bad": bad}))
 """
 
 
@@ -166,7 +170,7 @@ def test_baselines_and_lm_serving_run_without_jax_or_the_reference():
     out = subprocess.run([sys.executable, "-c", _SERVE_AND_BASELINES], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["bad"] == [] and res["tokens"] == 4
+    assert res["bad"] == [] and res["tokens"] == [4, 4]
     assert all(2 <= n <= 13 for n in res["sizes"])
 
 
@@ -180,8 +184,9 @@ def test_lm_server_and_baselines_without_device_refuse_the_cpu():
     src, dst = np.array([0, 1, 2]), np.array([1, 2, 3])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1", "--slots", "1"])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        build_model(get_smoke_config("qwen2_5_14b"))
+    for arch in ("qwen2_5_14b", "granite_moe_3b_a800m"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(get_smoke_config(arch))
     with pytest.raises(RuntimeError, match="CUDA"):
         summarize_s2l(src, dst, 4)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,8 +1,9 @@
-"""The port's dense LM (``repro_torch.models``) against the reference's
-(``repro.models``) on the CPU, on the reference's own weights carried across
-by ``lm_params_from_numpy``: forward and decode-step logits, greedy tokens,
-the port's decode-vs-forward consistency, one bfloat16 case, the config
-registry, and the families that wait for later slices."""
+"""The port's dense and MoE LMs (``repro_torch.models``) against the
+reference's (``repro.models``) on the CPU, on the reference's own weights
+carried across by ``lm_params_from_numpy``: forward and decode-step logits,
+greedy tokens, the port's decode-vs-forward consistency, bfloat16 cases, the
+config registry, the full-width trees counted without allocating, and the
+families that wait for later slices."""
 
 from __future__ import annotations
 
@@ -24,11 +25,12 @@ from repro_torch.configs import ssumm_paper
 from repro_torch.core.convert import lm_params_from_numpy
 from repro_torch.models import transformer
 from repro_torch.models.api import build_model
-from repro_torch.models.common import param_count
+from repro_torch.models.common import param_bytes, param_count
 
 torch.set_num_threads(1)
 
 DENSE = ["gemma_7b", "qwen2_5_14b", "h2o_danube_1_8b", "deepseek_coder_33b"]
+MOE = ["granite_moe_3b_a800m", "moonshot_v1_16b_a3b"]
 # float32: both sides add the same terms in other orders (XLA's dot, torch's
 # matmul); measured differences are below 1e-6 at logits of ~0.6.
 RTOL = ATOL = 1e-5
@@ -40,11 +42,19 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -8, 2.0 ** -6
 B, N, CACHE = 2, 12, 32
 
 
+def _with(cfg, dtype, cf):
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg
+
+
 @functools.lru_cache(maxsize=None)
-def carried(arch: str, dtype: str = "float32"):
-    """(ref cfg, ref model, ref params, port cfg, port model, port params, tokens)."""
-    rcfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype=dtype)
-    pcfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype)
+def carried(arch: str, dtype: str = "float32", cf: float | None = None):
+    """(ref cfg, ref model, ref params, port cfg, port model, port params, tokens);
+    ``cf`` replaces an MoE config's capacity factor on both sides."""
+    rcfg = _with(ref_configs.get_smoke_config(arch), dtype, cf)
+    pcfg = _with(configs.get_smoke_config(arch), dtype, cf)
     rmodel = ref_build_model(rcfg)
     rparams = rmodel.init(jax.random.PRNGKey(0))
     pmodel = build_model(pcfg, "cpu")
@@ -53,21 +63,21 @@ def carried(arch: str, dtype: str = "float32"):
     return rcfg, rmodel, rparams, pcfg, pmodel, pparams, tokens
 
 
-def _ref_forward(arch, dtype="float32"):
-    _, rmodel, rparams, *_, tokens = carried(arch, dtype)
-    logits, _ = rmodel.forward(rparams, {"tokens": jnp.asarray(tokens)}, None, False)
-    return np.asarray(logits)
+def _ref_forward(arch, dtype="float32", cf=None, aux=False):
+    _, rmodel, rparams, *_, tokens = carried(arch, dtype, cf)
+    logits, out = rmodel.forward(rparams, {"tokens": jnp.asarray(tokens)}, None, False)
+    return (np.asarray(logits), out) if aux else np.asarray(logits)
 
 
-def _port_forward(arch, dtype="float32"):
-    *_, pmodel, pparams, tokens = carried(arch, dtype)
-    logits, _ = pmodel.forward(pparams, {"tokens": torch.as_tensor(tokens).long()})
-    return logits.numpy()
+def _port_forward(arch, dtype="float32", cf=None, aux=False):
+    *_, pmodel, pparams, tokens = carried(arch, dtype, cf)
+    logits, out = pmodel.forward(pparams, {"tokens": torch.as_tensor(tokens).long()})
+    return (logits.numpy(), out) if aux else logits.numpy()
 
 
-def _decode_both(arch, dtype="float32"):
+def _decode_both(arch, dtype="float32", cf=None):
     """Per-position decode logits of the reference and the port, [N, B, V] each."""
-    _, rmodel, rparams, _, pmodel, pparams, tokens = carried(arch, dtype)
+    _, rmodel, rparams, _, pmodel, pparams, tokens = carried(arch, dtype, cf)
     rcache, pcache = rmodel.init_cache(B, CACHE), pmodel.init_cache(B, CACHE)
     rstep = jax.jit(lambda p, c, t, pos: rmodel.serve_step(
         p, {"token": t, "pos": pos, "cache": c}))
@@ -81,27 +91,34 @@ def _decode_both(arch, dtype="float32"):
     return np.stack(ref), np.stack(port)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_logits_equal_the_reference(arch):
-    want, got = _ref_forward(arch), _port_forward(arch)
+    (want, raux), (got, paux) = _ref_forward(arch, aux=True), _port_forward(arch, aux=True)
     assert got.shape == want.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert np.array_equal(got.argmax(-1), want.argmax(-1))  # greedy tokens
+    if arch in MOE:  # the mean of the layers' load-balance losses
+        np.testing.assert_allclose(float(paux["moe_aux"]), float(raux["moe_aux"]), rtol=1e-6)
+    else:
+        assert paux == {}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_decode_logits_equal_the_reference(arch):
     want, got = _decode_both(arch)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert np.array_equal(got.argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_decode_matches_forward(arch):
     """The port's counterpart of tests/test_decode_consistency.py: stepping
-    the serve path token by token reproduces the forward's logits."""
-    fwd = _port_forward(arch)
-    _, dec = _decode_both(arch)
+    the serve path token by token reproduces the forward's logits (an MoE
+    model at capacity factor 16, so that the forward drops no record, as
+    decode drops none)."""
+    cf = 16.0 if arch in MOE else None
+    fwd = _port_forward(arch, cf=cf)
+    _, dec = _decode_both(arch, cf=cf)
     for t in range(N):
         np.testing.assert_allclose(dec[t], fwd[:, t], rtol=RTOL, atol=ATOL,
                                    err_msg=f"{arch}: decode diverges from forward at {t}")
@@ -115,7 +132,15 @@ def test_bfloat16_forward_and_decode():
     np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma_7b"])
+def test_bfloat16_moe_forward_and_decode():
+    arch = "granite_moe_3b_a800m"
+    np.testing.assert_allclose(_port_forward(arch, "bfloat16"), _ref_forward(arch, "bfloat16"),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    want, got = _decode_both(arch, "bfloat16")
+    np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma_7b"] + MOE)
 def test_prefill_step_is_the_forwards_last_position(arch):
     *_, pmodel, pparams, tokens = carried(arch)
     batch = {"tokens": torch.as_tensor(tokens).long()}
@@ -184,15 +209,12 @@ def test_ssumm_paper_workloads_equal_the_reference():
         assert dataclasses.asdict(w.cfg) == dataclasses.asdict(r.cfg)
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "moonshot_v1_16b_a3b", "zamba2_7b",
-                                  "xlstm_350m", "whisper_large_v3", "paligemma_3b"])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_350m", "whisper_large_v3",
+                                  "paligemma_3b"])
 def test_families_not_ported_yet_raise(arch):
     cfg = configs.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         build_model(cfg, "cpu")
-    if cfg.moe is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            transformer.init_lm(torch.Generator(), cfg, torch.float32, "cpu")
 
 
 def test_full_width_shapes_and_bytes():
@@ -213,3 +235,34 @@ def _shape_leaves(tree):
             yield from _shape_leaves(v)
     else:
         yield tree
+
+
+def _tree_bytes(shapes, path=""):
+    """Bytes of a bfloat16 model's tree: routers and norms stay float32."""
+    if isinstance(shapes, dict):
+        return sum(_tree_bytes(v, f"{path}/{k}") for k, v in shapes.items())
+    f32 = path.endswith("/router") or "/ln" in path
+    return int(np.prod(shapes)) * (4 if f32 else 2)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_full_width_shapes_and_bytes(arch):
+    """granite-moe-3b-a800m and moonshot-v1-16b-a3b at full width, counted
+    without allocating: the analytic count plus the padded experts, the
+    routers and ln_f; granite's tree is 7,811,251,200 bytes."""
+    cfg = configs.get_config(arch)
+    shapes = transformer.param_shapes(cfg)
+    n = sum(int(np.prod(s)) for s in _shape_leaves(shapes))
+    d, f, e_pad = cfg.d_model, cfg.d_ff, cfg.moe.experts_padded(16)
+    pad = 3 * d * f * (e_pad - cfg.moe.num_experts)
+    assert n == cfg.param_count() + cfg.n_layers * (pad + d * e_pad) + d
+    assert shapes["layer_0"]["moe"] == {"router": (d, e_pad), "wi": (e_pad, d, f),
+                                        "wg": (e_pad, d, f), "wo": (e_pad, f, d)}
+    want = {"granite_moe_3b_a800m": 7_811_251_200, "moonshot_v1_16b_a3b": 55_457_882_112}
+    assert _tree_bytes(shapes) == want[arch]
+    # a seeded bfloat16 smoke model holds its leaves in the types counted here
+    small = dataclasses.replace(configs.get_smoke_config(arch), dtype="bfloat16")
+    params = build_model(small, "cpu").init(0)
+    assert params["layer_0"]["moe"]["router"].dtype == torch.float32
+    assert params["layer_0"]["moe"]["wi"].dtype == torch.bfloat16
+    assert param_bytes(params) == _tree_bytes(transformer.param_shapes(small))
