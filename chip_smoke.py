@@ -82,10 +82,11 @@ card and CPU runs. Phases, one line each or a few:
      each leg's wall (host time);
   12. the baselines: (a) ``evaluate_partition`` of phase 4's partition on the
      card against the CPU (counts exact, floats to rtol 1e-12); (b) S2L on
-     email-enron's stand-in at full size twice on the card (the same bits;
-     wall, seeding, Lloyd iterations, peak memory, the chunk budget); (c) S2L
+     email-enron's stand-in at full size once on the card (wall, seeding,
+     Lloyd iterations, peak memory, the chunk budget); (c) S2L
      at a quarter of it, card against CPU, each assignment recorded (labels
-     equal, the first differing distance gap; RE1 and size within 1%); (d)
+     equal, the first differing distance gap; RE1 and size within 1%), and
+     a second card run equal to the first bit for bit; (d)
      the paper's Fig. 4 point: SSumM on the card against k-Gs and SAA-Gs
      (ego-facebook 0.1, seed 1, T = 10), each kernel launched once a round;
   13. LM serving: (a) qwen2.5-14B at full width, 2 layers, float32, TF32 off:
@@ -94,7 +95,7 @@ card and CPU runs. Phases, one line each or a few:
      card from a seed, 8 requests through ``BatchServer`` (8 slots, prompt
      32, gen 32, max_len 128) twice, the same tokens; init time, median
      decode step against its bytes bound, tokens/s, peak memory, three
-     profiled steps; the share of tokens equal to 1 slot (not asserted);
+     profiled steps;
   14. the MoE family's serving path (no hand kernel on it: the reference's
      MoE is plain jnp): (a) moonshot-v1-16b-a3b at full width, 2 layers,
      float32, TF32 off, capacity factor 16: forward on the card against the
@@ -104,16 +105,34 @@ card and CPU runs. Phases, one line each or a few:
      ``BatchServer`` as in 13b, twice, the same tokens; init time, median
      decode step against its bytes bound and against the bytes of the experts
      a steady step routes to, tokens/s, peak memory, three profiled steps,
-     the share of tokens equal to 1 slot (not asserted), the hand kernels'
-     launches on the path (none); (c) granite's MoE block at full width,
-     float32, x [8, 128, 1536] at capacity factor 1.25 (records dropped): two
-     card runs bit-identical (the fixed-order combine), the drop fraction and
-     the difference against CPU copies.
+     the hand kernels' launches on the path (none); (c) granite's MoE block
+     at full width, float32, x [8, 128, 1536] at capacity factor 1.25
+     (records dropped): two card runs bit-identical (the fixed-order
+     combine), the drop fraction and the difference against CPU copies;
+  15. the recurrent and image-prefix families (no hand kernel on them: the
+     reference's Mamba2, xLSTM and image prefix are plain jnp): (a)
+     zamba2-7b at full width, 6 layers (the shared attention block at
+     i = 5), float32, TF32 off: forward on the card against the CPU, decode
+     against forward (rtol and atol 1e-3), the forward at SSM chunk 8
+     against one chunk of 16 (the carried state); (b) zamba2-7b, all 81
+     bfloat16 layers, served as in 13b, twice, the same tokens; init time,
+     median decode step against its bytes bound (parameters, the SSM and
+     conv states read and written, the 13 sites' KV caches), tokens/s, peak
+     memory, three profiled steps, the hand kernels' launches (none); (c)
+     xlstm-350m at full width and depth: float32 forward on the card against
+     the CPU (1e-3), decode against forward (the reference's 2e-3); then in
+     bfloat16 served as (b), the state (C, n, m, c, h) read and written in
+     the bound; (d) paligemma-3b at full width, 2 float32 layers: the last
+     position's logits with a [2, 256, 1152] image prefix and 16 text
+     tokens, card against CPU (1e-3); all 18 bfloat16 layers: prefill_step
+     on 8 x (256 image + 32 text) tokens, its median of 5 against the FLOP
+     bound at 989 TFLOP/s, peak memory, its logits against the forward's
+     last position, the hand kernels' launches (none).
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d and 14b), and as the last line
+10, 11a, 12d, 14b, 15b, 15c and 15d), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -136,6 +155,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM, dense bfloat16 on the tensor cores (data sheet)
 FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
 SFU_PER_SM_PER_CLK = 16
 NUM_SMS = 132
@@ -470,6 +490,113 @@ class MoeRecorder:
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
+
+
+def card_vs_cpu(torch, cfg, batch, *, tol: float, dec_tol: float | None = None,
+                last_only: bool = False):
+    """``cfg``'s model seeded on the card: its forward against the same
+    weights' forward on the CPU (rtol and atol ``tol``) and, given
+    ``dec_tol``, the card's decode against its forward position by position.
+    Returns (model, params, forward logits, a log text, failures)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_to
+    model = build_model(cfg, "cuda")
+    params = model.init(0)
+    fwd = model.forward(params, batch, last_only=last_only)[0]
+    want = build_model(cfg, "cpu").forward(tree_to(params, "cpu"),
+                                           {k: v.cpu() for k, v in batch.items()},
+                                           last_only=last_only)[0]
+    got = fwd.cpu()
+    errors = []
+    text = (f"forward card vs CPU max abs diff {float((got - want).abs().max()):.3g} "
+            f"(|logits| max {float(want.abs().max()):.3g}, rtol and atol {tol:g})")
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        errors.append("forward logits card vs CPU beyond tolerance")
+    if dec_tol is not None:
+        tokens = batch["tokens"]
+        b, n = tokens.shape
+        cache = model.init_cache(b, n)
+        dec_err, dec_ok = 0.0, True
+        for t in range(n):
+            lg, cache = model.serve_step(params, {"token": tokens[:, t], "pos": torch.tensor(t),
+                                                  "cache": cache})
+            dec_err = max(dec_err, float((lg - fwd[:, t]).abs().max()))
+            dec_ok &= torch.allclose(lg, fwd[:, t], rtol=dec_tol, atol=dec_tol)
+        text += (f"; decode vs forward on the card max abs diff {dec_err:.3g} (rtol and atol "
+                 f"{dec_tol:g})")
+        if not dec_ok:
+            errors.append("decode logits vs forward beyond tolerance")
+    return model, params, fwd, text, errors
+
+
+def serve_twice(cfg, params, prompts, *, slots: int, max_len: int, gen_len: int):
+    """``prompts`` through the port's ``BatchServer`` on the card, twice:
+    ``[(server, {rid: tokens}, wall_s), ...]``."""
+    from repro_torch.launch.serve import BatchServer, Request
+    runs = []
+    for _ in range(2):
+        server = BatchServer(cfg, slots=slots, max_len=max_len, params=params, device="cuda")
+        for rid, pr in enumerate(prompts):
+            server.submit(Request(rid=rid, prompt=pr, max_new=gen_len))
+        t0 = time.perf_counter()
+        while server.step():
+            pass
+        runs.append((server, {r.rid: list(r.out) for r in server.done},
+                     time.perf_counter() - t0))
+    return runs
+
+
+def service_line(runs) -> tuple[str, float, int]:
+    """The part of a service phase's log line that every LM family shares,
+    the median decode step (ms) and the tokens of one run."""
+    (s0, out0, w0), (s1, _, w1) = runs
+    ntok = sum(len(v) for v in out0.values())
+    steps = np.array(s0.step_s + s1.step_s) * 1e3
+    med = float(np.median(steps))
+    return (f"runs {w0:.3f} s and {w1:.3f} s, {len(s0.step_s)} decode steps a run, median "
+            f"step {med:.3f} ms (p10 {np.percentile(steps, 10):.3f}, p90 "
+            f"{np.percentile(steps, 90):.3f}); {ntok / w0:.2f} and {ntok / w1:.2f} tokens/s"), \
+        med, ntok
+
+
+def profiled(torch, fn, tag: str, what: str, calls: int = 1) -> None:
+    """Logs, over ``calls`` calls of ``fn`` (each ending in a host sync) under
+    torch.profiler, the wall of one call, the device's busy time and idle
+    share, the ATen calls a call (nested ones included) and its five longest
+    kernels by device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        events = prof.key_averages()
+    except RuntimeError as exc:
+        log(f"{tag} profiler failed ({exc}): device busy time not measured")
+        return
+    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    aten = sum(e.count for e in events if e.key.startswith("aten::")) / calls
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / calls:.3f}"
+                    for e in kernels[:5])
+    log(f"{tag} profiled {what}: wall {wall:.3f} ms (profiler on), device busy {busy:.3f} ms, "
+        f"idle share {100 * (1 - busy / wall):.1f}%, {aten:.0f} ATen calls (nested "
+        f"included); longest kernels (ms a call): {top}")
+
+
+def profile_decode(torch, model, params, batch, tag: str, steps: int = 3) -> None:
+    """:func:`profiled` over ``steps`` decode steps from ``batch``, the token
+    ids read back, as the server does."""
+    state = {"cache": batch["cache"]}
+
+    def step():
+        lg, state["cache"] = model.serve_step(params, dict(batch, cache=state["cache"]))
+        torch.argmax(lg, dim=-1).cpu()
+
+    profiled(torch, step, tag, "decode step", steps)
 
 
 class Smoke:
@@ -1961,38 +2088,30 @@ def run(tmp: str) -> int:
         if max(rel.values()) > 1e-12:
             errors.append(f"12a: floats beyond rtol 1e-12: {rel}")
 
-        # (b) S2L at email-enron's full size, twice on the card
+        # (b) S2L at email-enron's full size on the card, once (its seeding is
+        # 98% of a run's 25-28 s; run-to-run identity is held in (c))
         src2, dst2, v2 = generate("email-enron", seed=0, scale=1.0)
         k2 = max(int(0.3 * v2), 2)
-        runs = []
-        for _ in range(2):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            stats: dict = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = summarize_s2l(src2, dst2, v2, target_frac=0.3, seed=0, device="cuda",
-                              stats=stats)
-            torch.cuda.synchronize()
-            runs.append((r, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated()))
-        (r0, st0, w0, p0), (r1, st1, w1, p1) = runs
-        same = torch.equal(r0.node2super, r1.node2super) and all(
-            getattr(r0, k) == getattr(r1, k) for k in ("size_bits", "re1", "re2",
-                                                        "num_supernodes", "num_superedges"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = summarize_s2l(src2, dst2, v2, target_frac=0.3, seed=0, device="cuda", stats=st)
+        torch.cuda.synchronize()
+        w, pk = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
         rows = max(1, s2l_lib.ASSIGN_BYTES // (4 * k2))
-        for i, (r, st, w, pk) in enumerate(runs):
-            log(f"12b S2L email-enron V={v2} E={len(src2)} k={k2} dims=32, run {i + 1}: wall "
-                f"{w:.2f} s, seeding {st['seed_s']:.2f} s, Lloyd {st['lloyd_iters']} "
-                f"iterations in {st['lloyd_s']:.3f} s "
-                f"({st['lloyd_s'] / max(st['lloyd_iters'], 1) * 1e3:.2f} ms an iteration), "
-                f"peak {pk / 2**20:.1f} MiB; supernodes {r.num_supernodes}, re1 {r.re1!r}, "
-                f"relative size {r.size_bits / r.input_size_bits!r}")
+        log(f"12b S2L email-enron V={v2} E={len(src2)} k={k2} dims=32: wall "
+            f"{w:.2f} s, seeding {st['seed_s']:.2f} s, Lloyd {st['lloyd_iters']} "
+            f"iterations in {st['lloyd_s']:.3f} s "
+            f"({st['lloyd_s'] / max(st['lloyd_iters'], 1) * 1e3:.2f} ms an iteration), "
+            f"peak {pk / 2**20:.1f} MiB; supernodes {r.num_supernodes}, re1 {r.re1!r}, "
+            f"relative size {r.size_bits / r.input_size_bits!r}")
         log(f"12b chunk budget {s2l_lib.ASSIGN_BYTES} bytes a [rows, k] block: {rows} rows a "
-            f"chunk, {-(-v2 // rows)} chunks; two card runs equal bit for bit: {same}")
-        if not same:
-            errors.append("12b: two card runs of S2L differ")
+            f"chunk, {-(-v2 // rows)} chunks")
 
-        # (c) the same S2L at scale 0.25, card against CPU, each Lloyd step recorded
+        # (c) the same S2L at scale 0.25, card against CPU, each Lloyd step
+        # recorded; then the card again, equal to its first run bit for bit
         src3, dst3, v3 = generate("email-enron", seed=0, scale=0.25)
         inner, calls = s2l_lib._assign, {"cpu": [], "cuda": []}
         out3 = {}
@@ -2033,6 +2152,13 @@ def run(tmp: str) -> int:
             f"{wc:.2f} s, card {wg:.2f} s")
         if max(rel3.values()) > 0.01:
             errors.append(f"12c: RE1 or size beyond 1% of the CPU's: {rel3}")
+        rg2 = summarize_s2l(src3, dst3, v3, target_frac=0.3, seed=0, device="cuda")
+        same = torch.equal(rg.node2super, rg2.node2super) and all(
+            getattr(rg, k) == getattr(rg2, k) for k in ("size_bits", "re1", "re2",
+                                                         "num_supernodes", "num_superedges"))
+        log(f"12c two card runs at scale 0.25 equal bit for bit: {same}")
+        if not same:
+            errors.append("12c: two card runs of S2L differ")
 
         # (d) the paper's Fig. 4 point: SSumM against k-Gs and SAA-Gs at equal size
         src4, dst4, v4 = generate("ego-facebook", seed=1, scale=0.1)
@@ -2067,9 +2193,8 @@ def run(tmp: str) -> int:
     # ---- 13. LM serving at qwen2.5-14B's full width --------------------------
     def phase_lm():
         from repro_torch.configs import get_config
-        from repro_torch.launch.serve import BatchServer, Request
         from repro_torch.models.api import build_model
-        from repro_torch.models.common import param_bytes, tree_to
+        from repro_torch.models.common import param_bytes
         from repro_torch.models.transformer import kv_cache_bytes
         errors = []
         full = get_config("qwen2_5_14b")
@@ -2077,35 +2202,16 @@ def run(tmp: str) -> int:
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError("TF32 is on for float32 matmuls")
         cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
-        model = build_model(cfg, "cuda")
-        params = model.init(0)
         b, n = 2, 16
         tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, n)),
                                  device=dev)
-        fwd = model.forward(params, {"tokens": tokens})[0]
-        cpu_params = tree_to(params, "cpu")
-        want = build_model(cfg, "cpu").forward(cpu_params, {"tokens": tokens.cpu()})[0]
-        got = fwd.cpu()
-        fwd_err = float((got - want).abs().max())
-        fwd_ok = torch.allclose(got, want, rtol=1e-3, atol=1e-3)
-        cache = model.init_cache(b, n)
-        dec_err = 0.0
-        dec_ok = True
-        for t in range(n):
-            lg, cache = model.serve_step(params, {"token": tokens[:, t], "pos": torch.tensor(t),
-                                                  "cache": cache})
-            dec_err = max(dec_err, float((lg - fwd[:, t]).abs().max()))
-            dec_ok &= torch.allclose(lg, fwd[:, t], rtol=1e-3, atol=1e-3)
+        model, params, fwd, text, errs = card_vs_cpu(torch, cfg, {"tokens": tokens}, tol=1e-3,
+                                                     dec_tol=1e-3)
         log(f"13a qwen2.5-14B full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
             f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), 2 layers, float32, TF32 off, "
-            f"tokens [{b}, {n}]: forward card vs CPU max abs diff {fwd_err:.3g} "
-            f"(|logits| max {float(want.abs().max()):.3g}); decode vs forward on the card "
-            f"max abs diff {dec_err:.3g}; both held to rtol 1e-3, atol 1e-3")
-        if not fwd_ok:
-            errors.append("13a: forward logits card vs CPU beyond tolerance")
-        if not dec_ok:
-            errors.append("13a: decode logits vs forward beyond tolerance")
-        del model, params, cpu_params, fwd, want, got, cache
+            f"tokens [{b}, {n}]: {text}")
+        errors += [f"13a: {e}" for e in errs]
+        del model, params, fwd
         torch.cuda.empty_cache()
 
         # (b) service: the full 48-layer bfloat16 model through BatchServer
@@ -2123,64 +2229,26 @@ def run(tmp: str) -> int:
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32) for _ in range(nreq)]
 
-        def serve(nslots):
-            server = BatchServer(full, slots=nslots, max_len=max_len, params=params,
-                                 device="cuda")
-            for rid, pr in enumerate(prompts):
-                server.submit(Request(rid=rid, prompt=pr, max_new=gen_len))
-            t0 = time.perf_counter()
-            while server.step():
-                pass
-            wall = time.perf_counter() - t0
-            return server, {r.rid: list(r.out) for r in server.done}, wall
-
-        runs = [serve(slots) for _ in range(2)]
-        (s0, out0, w0), (s1, out1, w1) = runs
-        ntok = sum(len(v) for v in out0.values())
-        steps = np.array(s0.step_s + s1.step_s) * 1e3
-        med = float(np.median(steps))
+        runs = serve_twice(full, params, prompts, slots=slots, max_len=max_len,
+                           gen_len=gen_len)
+        (s0, out0, _), (s1, out1, _) = runs
+        line, med, ntok = service_line(runs)
         peak = torch.cuda.max_memory_allocated()
-        # device busy share of three decode steps, under torch.profiler
-        busy = None
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        tok = torch.zeros(slots, dtype=torch.int64, device=dev)
-        pos = torch.arange(slots, device=dev)
-        cache = s0.cache
-        try:
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    lg, cache = model.serve_step(params, {"token": tok, "pos": pos,
-                                                          "cache": cache})
-                    torch.argmax(lg, dim=-1).cpu()
-                prof_wall = (time.perf_counter() - t0) * 1e3 / 3
-            busy = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type.name == "CUDA") / 1e3 / 3
-        except RuntimeError as exc:
-            log(f"13b profiler failed ({exc}): device busy time not measured")
-        # every request again, one at a time in 1 slot
-        solo_server, solo, solo_wall = serve(1)
-        same_solo = sum(a == b for rid in solo for a, b in zip(out0[rid], solo[rid]))
         log(f"13b qwen2.5-14B, {full.n_layers} layers, bfloat16: {pbytes} parameter bytes initialised on "
             f"the card in {init_s:.2f} s; {nreq} requests, {slots} slots, prompt {prompt_len}, "
-            f"gen {gen_len}, max_len {max_len}: runs {w0:.3f} s and {w1:.3f} s, "
-            f"{len(s0.step_s)} decode steps a run, median step {med:.3f} ms (p10 "
-            f"{np.percentile(steps, 10):.3f}, p90 {np.percentile(steps, 90):.3f}); "
-            f"{ntok / w0:.2f} and {ntok / w1:.2f} tokens/s; peak {peak / 2**30:.2f} GiB; step "
+            f"gen {gen_len}, max_len {max_len}: {line}; peak {peak / 2**30:.2f} GiB; step "
             f"bound {bound_ms:.3f} ms (parameters {pbytes} + KV cache {kv} bytes at 3.35 TB/s), "
             f"{100 * bound_ms / med:.1f}% of it")
-        if busy is not None:
-            log(f"13b profiled decode step: wall {prof_wall:.3f} ms (profiler on), device busy "
-                f"{busy:.3f} ms, idle share {100 * (1 - busy / prof_wall):.1f}%")
-        log(f"13b the two runs' tokens equal: {out0 == out1}; all {nreq} requests in 1 slot "
-            f"({solo_wall:.2f} s, not asserted): {same_solo}/{ntok} tokens equal, "
-            f"{sum(out0[r] == solo[r] for r in out0)}/{nreq} requests whole")
+        # device busy share of three decode steps, under torch.profiler
+        profile_decode(torch, model, params, {
+            "token": torch.zeros(slots, dtype=torch.int64, device=dev),
+            "pos": torch.arange(slots, device=dev), "cache": s0.cache}, "13b")
+        log(f"13b the two runs' tokens equal: {out0 == out1}")
         if out0 != out1:
             errors.append("13b: two runs' tokens differ")
         if ntok != nreq * gen_len:
             errors.append(f"13b: {ntok} tokens, not {nreq * gen_len}")
-        del model, params, runs, s0, s1, solo_server, cache
+        del model, params, runs, s0, s1
         torch.cuda.empty_cache()
         if errors:
             raise AssertionError("; ".join(errors))
@@ -2190,7 +2258,6 @@ def run(tmp: str) -> int:
     # ---- 14. the MoE family's serving path -----------------------------------
     def phase_moe():
         from repro_torch.configs import get_config
-        from repro_torch.launch.serve import BatchServer, Request
         from repro_torch.models import moe as moe_lib
         from repro_torch.models.api import build_model
         from repro_torch.models.common import param_bytes, tree_to
@@ -2261,24 +2328,12 @@ def run(tmp: str) -> int:
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32) for _ in range(nreq)]
 
-        def serve(nslots):
-            server = BatchServer(full, slots=nslots, max_len=max_len, params=params,
-                                 device="cuda")
-            for rid, pr in enumerate(prompts):
-                server.submit(Request(rid=rid, prompt=pr, max_new=gen_len))
-            t0 = time.perf_counter()
-            while server.step():
-                pass
-            wall = time.perf_counter() - t0
-            return server, {r.rid: list(r.out) for r in server.done}, wall
-
         ops.reset_launch_counts()
-        runs = [serve(slots) for _ in range(2)]
+        runs = serve_twice(full, params, prompts, slots=slots, max_len=max_len,
+                           gen_len=gen_len)
         ctx["moe_counts"] = ops.launch_counts()
-        (s0, out0, w0), (s1, out1, w1) = runs
-        ntok = sum(len(v) for v in out0.values())
-        steps = np.array(s0.step_s + s1.step_s) * 1e3
-        med = float(np.median(steps))
+        (s0, out0, _), (s1, out1, _) = runs
+        line, med, ntok = service_line(runs)
         peak = torch.cuda.max_memory_allocated()
         # one steady decode step of the 8 requests (their last tokens, the
         # cache of run 1) recorded: the experts it routes to, layer by layer
@@ -2296,48 +2351,24 @@ def run(tmp: str) -> int:
                 for c in rec.calls]
         routed = pbytes - full.n_layers * e_pad * expert_bytes + sum(used) * expert_bytes
         routed_ms = (routed + kv) / HBM_BYTES_PER_S * 1e3
-        # device busy share of three decode steps, under torch.profiler
-        busy = None
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        try:
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    lg, cache = model.serve_step(params, {"token": tok, "pos": pos,
-                                                          "cache": cache})
-                    torch.argmax(lg, dim=-1).cpu()
-                prof_wall = (time.perf_counter() - t0) * 1e3 / 3
-            busy = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type.name == "CUDA") / 1e3 / 3
-        except RuntimeError as exc:
-            log(f"14b profiler failed ({exc}): device busy time not measured")
-        # every request again, one at a time in 1 slot
-        solo_server, solo, solo_wall = serve(1)
-        same_solo = sum(a == b for rid in solo for a, b in zip(out0[rid], solo[rid]))
         log(f"14b granite-moe-3b-a800m, {full.n_layers} layers, bfloat16 ({e_pad} padded experts, "
             f"float32 routers and norms): {pbytes} parameter bytes initialised on the card in "
             f"{init_s:.2f} s; {nreq} requests, {slots} slots, prompt {prompt_len}, gen {gen_len}, "
-            f"max_len {max_len}: runs {w0:.3f} s and {w1:.3f} s, {len(s0.step_s)} decode steps "
-            f"a run, median step {med:.3f} ms (p10 {np.percentile(steps, 10):.3f}, p90 "
-            f"{np.percentile(steps, 90):.3f}); {ntok / w0:.2f} and {ntok / w1:.2f} tokens/s; "
+            f"max_len {max_len}: {line}; "
             f"peak {peak / 2**30:.2f} GiB; step bound {bound_ms:.3f} ms (parameters {pbytes} + "
             f"KV cache {kv} bytes at 3.35 TB/s; every expert's bucket is multiplied), "
             f"{100 * bound_ms / med:.1f}% of it; a steady step routes to {min(used)}-"
             f"{max(used)} of {full.moe.num_experts} experts a layer ({sum(used)} in all): "
             f"{routed} bytes with the KV cache {routed + kv}, {routed_ms:.3f} ms at 3.35 TB/s; "
             f"launches of the hand kernels over both runs {ctx['moe_counts']}")
-        if busy is not None:
-            log(f"14b profiled decode step: wall {prof_wall:.3f} ms (profiler on), device busy "
-                f"{busy:.3f} ms, idle share {100 * (1 - busy / prof_wall):.1f}%")
-        log(f"14b the two runs' tokens equal: {out0 == out1}; all {nreq} requests in 1 slot "
-            f"({solo_wall:.2f} s, not asserted): {same_solo}/{ntok} tokens equal, "
-            f"{sum(out0[r] == solo[r] for r in out0)}/{nreq} requests whole")
+        # device busy share of three decode steps, under torch.profiler
+        profile_decode(torch, model, params, {"token": tok, "pos": pos, "cache": cache}, "14b")
+        log(f"14b the two runs' tokens equal: {out0 == out1}")
         if out0 != out1:
             errors.append("14b: two runs' tokens differ")
         if ntok != nreq * gen_len:
             errors.append(f"14b: {ntok} tokens, not {nreq * gen_len}")
-        del model, params, runs, s0, s1, solo_server, cache, rec
+        del model, params, runs, s0, s1, cache, rec
         torch.cuda.empty_cache()
 
         # (c) determinism of the block: granite's MoE at full width, float32,
@@ -2378,6 +2409,182 @@ def run(tmp: str) -> int:
 
     smoke.phase("14 MoE serving", phase_moe)
 
+    # ---- 15. the recurrent and image-prefix families ----------------------------
+    def phase_recurrent():
+        from repro_torch.configs import get_config
+        from repro_torch.models import zamba2
+        from repro_torch.models.api import build_model, param_shapes
+        from repro_torch.models.common import param_bytes
+        errors = []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
+        b, n = 2, 16
+        rng = np.random.default_rng(0)
+
+        def service(tag, full, state_of):
+            """``full`` seeded in bfloat16 on the card and served twice; its
+            decode step against the bytes bound: parameters, the recurrent
+            state read and written, a KV cache read (``state_of(cache)`` gives
+            the state's and the KV cache's bytes). Returns the launch counts."""
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = build_model(full, "cuda")
+            params = model.init(0)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            pbytes = param_bytes(params)
+            state, kv = state_of(model.init_cache(slots, max_len))
+            bound_ms = (pbytes + 2 * state + kv) / HBM_BYTES_PER_S * 1e3
+            prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32)
+                       for _ in range(nreq)]
+            ops.reset_launch_counts()
+            runs = serve_twice(full, params, prompts, slots=slots, max_len=max_len,
+                               gen_len=gen_len)
+            counts = ops.launch_counts()
+            (s0, out0, _), (s1, out1, _) = runs
+            line, med, ntok = service_line(runs)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"{tag} {full.name}, {full.n_layers} layers, {full.dtype}: {pbytes} parameter bytes "
+                f"initialised on the card in {init_s:.2f} s; {nreq} requests, {slots} slots, "
+                f"prompt {prompt_len}, gen {gen_len}, max_len {max_len}: {line}; peak "
+                f"{peak / 2**30:.2f} GiB; step bound {bound_ms:.3f} ms (parameters {pbytes} + "
+                f"recurrent state {state} bytes read and written + KV cache {kv} bytes at "
+                f"3.35 TB/s), {100 * bound_ms / med:.1f}% of it; launches of the hand kernels "
+                f"over both runs {counts}")
+            tok = torch.as_tensor([out0[r][-1] for r in range(nreq)], dtype=torch.int64,
+                                  device=dev)
+            pos = torch.full((slots,), prompt_len + gen_len - 1, dtype=torch.int64, device=dev)
+            profile_decode(torch, model, params, {"token": tok, "pos": pos, "cache": s0.cache},
+                           tag)
+            log(f"{tag} the two runs' tokens equal: {out0 == out1}")
+            if out0 != out1:
+                errors.append(f"{tag}: two runs' tokens differ")
+            if ntok != nreq * gen_len:
+                errors.append(f"{tag}: {ntok} tokens, not {nreq * gen_len}")
+            if any(counts.values()):
+                errors.append(f"{tag}: a hand kernel launched on the path: {counts}")
+            del model, params, runs, s0, s1
+            torch.cuda.empty_cache()
+            return counts
+
+        def tree_bytes(tree, keep):
+            return sum(param_bytes(v) for k, v in tree.items() if keep(k))
+
+        # (a) zamba2-7b numerics: full width, 6 layers (the shared block at i = 5)
+        full = get_config("zamba2_7b")
+        cfg = dataclasses.replace(full, n_layers=6, dtype="float32")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, n)), device=dev)
+        model, params, fwd, text, errs = card_vs_cpu(torch, cfg, {"tokens": tokens}, tol=1e-3,
+                                                     dec_tol=1e-3)
+        errors += [f"15a: {e}" for e in errs]
+        chunked = build_model(dataclasses.replace(cfg, ssm_chunk=8), "cuda").forward(
+            params, {"tokens": tokens})[0]
+        chunk_err = float((chunked - fwd).abs().max())
+        if not torch.allclose(chunked, fwd, rtol=1e-3, atol=1e-3):
+            errors.append("15a: the forward at chunk 8 differs from one chunk of 16")
+        log(f"15a zamba2-7b full width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads, ssm_state {cfg.ssm_state}, head_dim {cfg.ssm_head_dim}, d_ff {cfg.d_ff}), "
+            f"{cfg.n_layers} layers, shared attention at {zamba2.attn_sites(cfg)}, float32, TF32 "
+            f"off, {param_bytes(params)} parameter bytes, tokens [{b}, {n}]: {text}; the "
+            f"forward at SSM chunk 8 (2 chunks) vs one chunk of 16 on the card max abs diff "
+            f"{chunk_err:.3g} (rtol and atol 0.001)")
+        del model, params, fwd, chunked
+        torch.cuda.empty_cache()
+
+        # (b) zamba2-7b served: all 81 layers, bfloat16
+        sites = len(zamba2.attn_sites(full))
+        ctx["hybrid_counts"] = service("15b", full, lambda c: (
+            tree_bytes(c, lambda k: k.startswith("ssm_")),
+            tree_bytes(c, lambda k: k.startswith("attn_"))))
+        log(f"15b {sites} shared-attention sites, each with its own KV cache")
+
+        # (c) xlstm-350m: full width and depth; float32 numerics, then served
+        full = get_config("xlstm_350m")
+        cfg = dataclasses.replace(full, dtype="float32")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, n)), device=dev)
+        model, params, fwd, text, errs = card_vs_cpu(torch, cfg, {"tokens": tokens}, tol=1e-3,
+                                                     dec_tol=2e-3)
+        errors += [f"15c: {e}" for e in errs]
+        log(f"15c xlstm-350m full width and depth (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+            f"{cfg.n_layers} layers, mLSTM and sLSTM alternating), float32, TF32 off, "
+            f"{param_bytes(params)} parameter bytes, tokens [{b}, {n}]: {text} (the "
+            f"reference's decode-vs-forward tolerance: the forward's stabiliser is global)")
+        del model, params, fwd
+        torch.cuda.empty_cache()
+        ctx["xlstm_counts"] = service("15c", full, lambda c: (param_bytes(c), 0))
+
+        # (d) paligemma-3b: the image prefix at full width
+        full = get_config("paligemma_3b")
+        cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+        img = torch.as_tensor(rng.standard_normal((b, cfg.img_tokens, cfg.img_dim)),
+                              dtype=torch.float32, device=dev)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, n)), device=dev)
+        model, params, fwd, text, errs = card_vs_cpu(
+            torch, cfg, {"tokens": tokens, "img_emb": img}, tol=1e-3, last_only=True)
+        errors += [f"15d: {e}" for e in errs]
+        log(f"15d paligemma-3b full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), 2 layers, float32, "
+            f"TF32 off, {param_bytes(params)} parameter bytes, image [{b}, {cfg.img_tokens}, "
+            f"{cfg.img_dim}] + tokens [{b}, {n}], the last position's logits (last_only: "
+            f"[{b}, {cfg.img_tokens + n}, {cfg.vocab}] logits on the CPU cost too much): {text}")
+        del model, params, fwd
+        torch.cuda.empty_cache()
+
+        pb, text_len = 8, 32
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(full, "cuda")
+        params = model.init(0)
+        pbytes = param_bytes(params)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, full.vocab, (pb, text_len)),
+                                           device=dev),
+                 "img_emb": torch.randn((pb, full.img_tokens, full.img_dim), device=dev,
+                                        dtype=torch.bfloat16)}
+        seq = full.img_tokens + text_len
+        ops.reset_launch_counts()
+        logits = model.prefill_step(params, batch)
+        torch.cuda.synchronize()
+        ctx["vlm_counts"] = ops.launch_counts()
+        prefill_ms = time_single(torch, lambda: model.prefill_step(params, batch), reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        # FLOPs the prefill needs: the image projection, every layer's products
+        # over all positions, causal attention's pairs, the last position's head
+        shapes = param_shapes(full)
+        layer = sum(int(np.prod(shape)) for part in ("attn", "mlp")
+                    for shape in shapes["layer_0"][part].values())
+        pairs = seq * (seq + 1) // 2
+        flops = (2 * pb * full.img_tokens * full.img_dim * full.d_model
+                 + 2 * pb * seq * full.n_layers * layer
+                 + 4 * pb * pairs * full.n_heads * full.hd * full.n_layers
+                 + 2 * pb * full.d_model * full.vocab)
+        flop_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = pbytes / HBM_BYTES_PER_S * 1e3
+        profiled(torch, lambda: (model.prefill_step(params, batch), torch.cuda.synchronize()),
+                 "15d", "prefill")
+        full_logits = model.forward(params, batch)[0][:, -1]
+        last_err = float((logits - full_logits).abs().max())
+        # one bfloat16 rounding of the head's product apart (another GEMM shape)
+        if not torch.allclose(logits, full_logits, rtol=2.0 ** -7, atol=2.0 ** -6):
+            errors.append("15d: prefill logits differ from the forward's last position")
+        if not bool(torch.isfinite(logits).all()) or tuple(logits.shape) != (pb, full.vocab):
+            errors.append(f"15d: prefill logits {tuple(logits.shape)} not finite or misshaped")
+        if any(ctx["vlm_counts"].values()):
+            errors.append(f"15d: a hand kernel launched on the path: {ctx['vlm_counts']}")
+        log(f"15d paligemma-3b, {full.n_layers} layers, bfloat16, {pbytes} parameter bytes: "
+            f"prefill_step on {pb} x ({full.img_tokens} image + {text_len} text) tokens, median "
+            f"of 5 {prefill_ms:.3f} ms; FLOP bound {flop_ms:.3f} ms ({flops / 1e12:.4f} TFLOP at "
+            f"989 TFLOP/s dense bfloat16), {100 * flop_ms / prefill_ms:.1f}% of it (bytes bound "
+            f"{bytes_ms:.3f} ms); peak {peak / 2**30:.2f} GiB; logits against the forward's last "
+            f"position max abs diff {last_err:.3g} (rtol 2^-7, atol 2^-6); launches of the hand "
+            f"kernels {ctx['vlm_counts']}")
+        del model, params, batch, logits, full_logits
+        torch.cuda.empty_cache()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("15 recurrent and image-prefix families", phase_recurrent)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -2392,6 +2599,9 @@ def run(tmp: str) -> int:
         by_path.setdefault("edge-sharded", 0)
         by_path["baselines comparison, SSumM side"] = ctx["baseline_counts"][k]
         by_path["MoE serving (granite, phase 14b)"] = ctx["moe_counts"][k]
+        by_path["hybrid serving (zamba2, phase 15b)"] = ctx["hybrid_counts"][k]
+        by_path["xLSTM serving (phase 15c)"] = ctx["xlstm_counts"][k]
+        by_path["VLM prefill (paligemma, phase 15d)"] = ctx["vlm_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

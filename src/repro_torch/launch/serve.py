@@ -3,19 +3,27 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_14b --smoke \
         --requests 8 --prompt-len 32 --gen-len 32 [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_moe_3b_a800m ...
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot_v1_16b_a3b ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_350m ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma_3b ...
 
-Port of ``repro/launch/serve.py`` for the dense and MoE families (gemma,
-qwen, danube, deepseek; granite-moe, moonshot). The scheduler packs
-requests into fixed slots, keeps a decode position per slot, refills a
-finished slot from the queue (continuous batching) and samples greedily;
-every token, prompt tokens included, goes through the model's decode step
-(``Model.serve_step``). Empty slots decode token 0, as the reference's do;
-an MoE decode step is dropless, so they take no expert capacity from live
-slots. It prints the reference's JSON result line plus
-``device``, ``decode_steps`` and the median decode step. The reference's
-mesh and sharding rules have no counterpart: the port serves on one device.
-It runs on the card unless ``--device cpu`` is given.
+Port of ``repro/launch/serve.py`` for every decoder family but whisper's:
+dense (gemma, qwen, danube, deepseek), MoE (granite-moe, moonshot), VLM
+(paligemma, served through its text decode step, as the reference's is),
+hybrid (zamba2) and xLSTM. The scheduler packs requests into fixed slots,
+keeps a decode position per slot, refills a finished slot from the queue
+(continuous batching) and samples greedily; every token, prompt tokens
+included, goes through the model's decode step (``Model.serve_step``).
+Empty slots decode token 0, as the reference's do; an MoE decode step is
+dropless, so they take no expert capacity from live slots. A recurrent
+family's state is not protected by position masking: at admission the
+server zeroes the new slot (``Model.clear_slot``), snapshots the cache,
+teacher-forces the prompt and restores every other slot from the snapshot
+(``Model.restore_slots``), the reference's order. It prints the
+reference's JSON result line plus ``device``, ``decode_steps`` and the
+median decode step. The reference's mesh and sharding rules have no
+counterpart: the port serves on one device. It runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -30,12 +38,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.api import build_model
-
-
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
+from repro_torch.models.common import tree_map
 
 
 @dataclasses.dataclass
@@ -99,11 +102,11 @@ class BatchServer:
                 # teacher-force the prompt through the decode path at this
                 # slot's own positions; other slots' KV lines are safe by
                 # masking. Recurrent state is not: such a family zeroes slot
-                # s first and restores every other slot afterwards.
+                # s, snapshots, and restores every other slot afterwards.
                 snap = None
                 if self.model.clear_slot is not None:
                     self.cache = self.model.clear_slot(self.cache, s)
-                    snap = _clone(self.cache)
+                    snap = tree_map(torch.clone, self.cache)
                 for i, tok in enumerate(req.prompt):
                     token = np.zeros(self.slots, np.int32)
                     token[s] = tok

@@ -1,4 +1,4 @@
-"""Model API of the port: ``build_model(cfg, device)`` for the dense and MoE families.
+"""Model API of the port: ``build_model(cfg, device)`` for the decoder families.
 
 Port of ``repro/models/api.py``'s serving half. :class:`Model` gives
 
@@ -9,10 +9,15 @@ Port of ``repro/models/api.py``'s serving half. :class:`Model` gives
     init_cache(batch, seq_len)        → decode cache (dict tree)
 
 on the model's device (``"cuda"`` unless the caller asks for the CPU).
-``loss`` and ``train_step`` come with the training slice. The dense and
-MoE families build here (the MoE block plugs into the transformer block, as
-in the reference); every other family raises ``NotImplementedError`` naming
-the ROADMAP Queue 1 entry that ports it.
+``loss`` and ``train_step`` come with the training slice. The dense and MoE
+families (the MoE block plugs into the transformer block), the VLM family
+(paligemma: a projected image prefix before the tokens, ``batch["img_emb"]``;
+decode is the dense step with no image, as in the reference), the hybrid
+(zamba2's Mamba2 blocks and shared attention) and xLSTM build here; the
+encoder-decoder family raises ``NotImplementedError`` naming the ROADMAP
+Queue 1 entry that ports it. The two recurrent families set the server's
+admission seam, ``clear_slot`` and ``restore_slots`` (see :class:`Model`).
+:func:`param_shapes` gives each family's tree of leaf shapes.
 """
 
 from __future__ import annotations
@@ -24,15 +29,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.common import DTYPES
+from repro_torch.models import transformer, xlstm, zamba2
+from repro_torch.models.common import DTYPES, dense_init, tree_map
 
 # ROADMAP Queue 1's entry for each family not ported yet.
 NOT_PORTED = {
-    "hybrid": "the hybrid family (models/mamba2.py, models/zamba2.py)",
-    "xlstm": "the xLSTM family (models/xlstm.py)",
     "encdec": "the encoder-decoder family (models/whisper.py, cross_attention)",
-    "vlm": "the VLM family (paligemma's image prefix)",
 }
 
 
@@ -45,10 +47,11 @@ class Model:
     decode: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, seq_len) -> cache
     # Admission seam for recurrent families: clear_slot(cache, s) zeroes slot
-    # s's state; restore_slots(new, old, s) keeps slot s of ``new`` and every
-    # other slot of ``old``. A KV cache needs neither (position masking).
+    # s of every leaf; restore_slots(new, old, s) keeps slot s of ``new`` and
+    # every other slot of ``old``. A KV cache needs neither (position masking).
     clear_slot: Callable | None = None
     restore_slots: Callable | None = None
+    prefix_len: int = 0  # positions before the tokens (the VLM's image)
 
     def init(self, seed: int = 0):
         gen = torch.Generator(device=self.device)
@@ -84,9 +87,91 @@ def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
     )
 
 
+def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
+    dtype = DTYPES[cfg.dtype]
+
+    def init(gen):
+        p = transformer.init_lm(gen, cfg, dtype, dev)
+        p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
+        return p
+
+    def fwd(params, batch, last_only=False):
+        prefix = torch.matmul(batch["img_emb"].to(dtype), params["img_proj"])
+        return transformer.forward(params, batch["tokens"], cfg, prefix_emb=prefix,
+                                   last_only=last_only)
+
+    model = _dense_family(cfg, dev)
+    return dataclasses.replace(model, init_fn=init, forward=fwd, prefix_len=cfg.img_tokens)
+
+
+def clear_slot(cache, s: int):
+    """Zero slot ``s`` of every leaf in place, as the reference's server does
+    at admission (an xLSTM stabiliser ``m`` becomes 0, not init's -30)."""
+    tree_map(lambda x: x[s].zero_(), cache)
+    return cache
+
+
+def restore_slots(new, old, s: int):
+    """Slot ``s`` of ``new`` and every other slot of ``old``, written into ``old``."""
+    def one(n, o):
+        o[s] = n[s]
+        return o
+
+    return tree_map(one, new, old)
+
+
+def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
+                      init_cache) -> Model:
+    def fwd(params, batch, last_only=False):
+        return forward(params, batch["tokens"], cfg, last_only=last_only)
+
+    def dec(params, batch):
+        return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
+
+    return Model(cfg=cfg, device=dev, init_fn=init, forward=fwd, decode=dec,
+                 init_cache=init_cache, clear_slot=clear_slot, restore_slots=restore_slots)
+
+
+def _hybrid_family(cfg: ModelConfig, dev: torch.device) -> Model:
+    dtype = DTYPES[cfg.dtype]
+    return _recurrent_family(
+        cfg, dev, lambda gen: zamba2.init_zamba2(gen, cfg, dtype, dev), zamba2.forward,
+        zamba2.decode_step, lambda b, s: zamba2.init_cache(cfg, b, s, dtype, dev))
+
+
+def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
+    dtype = DTYPES[cfg.dtype]
+    return _recurrent_family(
+        cfg, dev, lambda gen: xlstm.init_xlstm_lm(gen, cfg, dtype, dev), xlstm.xlstm_forward,
+        xlstm.xlstm_decode_step, lambda b, s: xlstm.init_xlstm_cache(cfg, b, s, dev))
+
+
+_FAMILIES = {
+    "dense": _dense_family,
+    "moe": _dense_family,  # MoE plugs into the transformer block
+    "vlm": _vlm_family,
+    "xlstm": _xlstm_family,
+    "hybrid": _hybrid_family,
+}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The shape of every leaf the family's ``init`` makes, in the same tree."""
+    if cfg.family == "hybrid":
+        return zamba2.param_shapes(cfg)
+    if cfg.family == "xlstm":
+        return xlstm.param_shapes(cfg)
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    out = transformer.param_shapes(cfg)
+    if cfg.family == "vlm":
+        out["img_proj"] = (cfg.img_dim, cfg.d_model)
+    return out
+
+
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP Queue 1 lists "
             f"{NOT_PORTED.get(cfg.family, cfg.family)}")
-    return _dense_family(cfg, resolve_device(device))
+    return _FAMILIES[cfg.family](cfg, resolve_device(device))

@@ -26,11 +26,16 @@ def param_count(tree) -> int:
     return int(tree.numel())
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of dict trees of one structure, in a new tree."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def tree_to(tree, device):
     """A copy of a parameter or cache tree on ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree_map(lambda x: x.to(device), tree)
 
 
 def param_bytes(tree) -> int:
@@ -44,7 +49,9 @@ def param_bytes(tree) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+def normal_init(gen: torch.Generator, shape, scale: float, dtype=torch.bfloat16,
+                device="cuda") -> torch.Tensor:
+    """``scale`` times a float32 standard normal draw, cast to ``dtype``."""
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 
@@ -52,11 +59,11 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.T
 def dense_init(gen, shape, in_axis: int | None = 0, dtype=torch.bfloat16,
                device="cuda") -> torch.Tensor:
     fan_in = shape[in_axis] if in_axis is not None else int(np.prod(shape[:-1]))
-    return _normal(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype, device)
+    return normal_init(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype, device)
 
 
 def embed_init(gen, shape, dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
-    return _normal(gen, shape, 0.02, dtype, device)
+    return normal_init(gen, shape, 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +85,11 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     out = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
     out = out + bias.float()
     return out.to(x.dtype)
+
+
+def norm_shapes(d, kind: str = "rmsnorm") -> dict:
+    """The shape of every leaf :func:`init_norm` makes."""
+    return {"scale": (d,)} if kind == "rmsnorm" else {"scale": (d,), "bias": (d,)}
 
 
 def init_norm(d, kind: str = "rmsnorm", device="cuda"):

@@ -1,0 +1,174 @@
+"""Mamba2 (SSD — state-space duality) blocks for zamba2.
+
+Port of ``repro/models/mamba2.py``. The full-sequence path is chunked: a
+Python loop over chunks (the reference's ``lax.scan``) carries the
+inter-chunk state [B, H, N, P]; within a chunk the quadratic
+"attention-like" form is a few batched einsums over one [B, Q, Q, H] tile
+(Q = ``cfg.ssm_chunk``). The decode path advances the state one token.
+
+Types follow the reference op for op: x, dt, B and C go to float32 for the
+scan, ``y`` returns to the model type before the ``silu(z)`` gate; the
+depthwise conv runs in the model type and its ``silu`` in float32, cast
+back. Decode keeps the conv state in the model type and ``h`` in float32.
+Every decay is ``exp(clip(·, -60, 0))``. One B/C group is shared by all
+heads.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import apply_norm, dense_init, init_norm, normal_init, norm_shapes
+
+CONV_W = 4
+
+
+def dims(cfg, d_model=None):
+    d = d_model or cfg.d_model
+    di = cfg.ssm_expand * d
+    p = cfg.ssm_head_dim
+    h = di // p
+    n = cfg.ssm_state
+    return d, di, h, p, n
+
+
+def init_mamba2(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    d, di, h, p, n = dims(cfg)
+    conv_ch = di + 2 * n  # conv over (x, B, C) as in mamba2
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "ln": init_norm(d, cfg.norm, device),
+        "in_proj": dense_init(gen, (d, 2 * di + 2 * n + h), 0, dtype, device),
+        "conv_w": normal_init(gen, (CONV_W, conv_ch), 0.1, dtype, device),
+        "conv_b": torch.zeros(conv_ch, dtype=dtype, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+        "dt_bias": torch.zeros(h, **f32),
+        "d_skip": torch.ones(h, **f32),
+        "out_norm": init_norm(di, cfg.norm, device),
+        "out_proj": dense_init(gen, (di, d), 0, dtype, device),
+    }
+
+
+def param_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_mamba2` makes."""
+    d, di, h, _, n = dims(cfg)
+    return {"ln": norm_shapes(d, cfg.norm), "in_proj": (d, 2 * di + 2 * n + h),
+            "conv_w": (CONV_W, di + 2 * n), "conv_b": (di + 2 * n,), "a_log": (h,),
+            "dt_bias": (h,), "d_skip": (h,), "out_norm": norm_shapes(di, cfg.norm),
+            "out_proj": (di, d)}
+
+
+def _split(cfg, u):
+    """in_proj output → (z, x, B, C, dt_raw)."""
+    _, di, h, _, n = dims(cfg)
+    return torch.split(u, [di, di, n, n, h], dim=-1)
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv over [B, S, C] with kernel [W, C]."""
+    s = x.shape[1]
+    pad = F.pad(x, (0, 0, CONV_W - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i][None, None, :] for i in range(CONV_W))
+    return F.silu((out + b).float()).to(x.dtype)
+
+
+def _decay(x):
+    return torch.exp(torch.clamp(x, -60.0, 0.0))
+
+
+def ssd_forward(p, x_in, cfg, *, chunk=None):
+    """Full-sequence SSD. x_in: [B, S, d] → [B, S, d]. ``chunk`` (default
+    ``cfg.ssm_chunk``, at most S) must divide S: the reference pads nothing."""
+    d, di, h, hp, n = dims(cfg)
+    b, s, _ = x_in.shape
+    q = min(chunk or cfg.ssm_chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_forward: sequence length {s} is not a multiple of the "
+                         f"chunk {q}")
+    nc = s // q
+
+    res = x_in
+    u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
+    u = torch.matmul(u, p["in_proj"])
+    z, xc, b_, c_, dt_raw = _split(cfg, u)
+    xbc = _causal_conv(torch.cat([xc, b_, c_], -1), p["conv_w"], p["conv_b"])
+    xc, b_, c_ = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B,S,H]
+    a = -torch.exp(p["a_log"])  # [H]
+    loga = dt * a[None, None, :]  # [B,S,H]  (≤ 0)
+    xh = xc.reshape(b, s, h, hp).float()
+    xdt = xh * dt[..., None]  # discretized input
+    bf = b_.float()  # [B,S,N] (ngroups=1, shared across heads)
+    cf = c_.float()
+
+    # chunked layout
+    lcs = torch.cumsum(loga.reshape(b, nc, q, h), dim=2)  # within-chunk cumulative log decay
+    ltot = lcs[:, :, -1, :]  # [B,nc,H]
+    xq = xdt.reshape(b, nc, q, h, hp)
+    bq = bf.reshape(b, nc, q, n)
+    cq = cf.reshape(b, nc, q, n)
+    iota = torch.arange(q, device=x_in.device)
+    causal = (iota[:, None] >= iota[None, :]).float()
+
+    hstate = torch.zeros((b, h, n, hp), dtype=torch.float32, device=x_in.device)
+    ys = []
+    for c in range(nc):
+        xck, bck, cck, lck, ltotk = xq[:, c], bq[:, c], cq[:, c], lcs[:, c], ltot[:, c]
+        # intra-chunk quadratic form
+        cb = torch.einsum("bin,bjn->bij", cck, bck)  # [B,q,q]
+        dec = _decay(lck[:, :, None, :] - lck[:, None, :, :])  # [B,q,q,H]
+        w = cb[..., None] * dec * causal[None, :, :, None]  # [B,q,q,H]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xck)
+        # contribution of the carried inter-chunk state
+        dec_i = _decay(lck)  # [B,q,H]
+        y_carry = torch.einsum("bin,bhnp->bihp", cck, hstate) * dec_i[..., None]
+        # new chunk state
+        dec_j = _decay(ltotk[:, None, :] - lck)  # [B,q,H]
+        s_c = torch.einsum("bjn,bjh,bjhp->bhnp", bck, dec_j, xck)
+        hstate = _decay(ltotk)[..., None, None] * hstate + s_c
+        ys.append(y_intra + y_carry)
+    y = torch.stack(ys, dim=1).reshape(b, s, h, hp)
+    y = y + xh * p["d_skip"][None, None, :, None]
+    y = y.reshape(b, s, di).to(x_in.dtype)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
+    return res + torch.matmul(y, p["out_proj"])
+
+
+def ssd_decode(p, x_in, cfg, state):
+    """One-token decode. state = {"h": [B,H,N,P] f32, "conv": [B,W-1,C]};
+    returns (out, a new state)."""
+    d, di, h, hp, n = dims(cfg)
+    b = x_in.shape[0]
+    res = x_in
+    u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
+    u = torch.matmul(u, p["in_proj"])
+    z, xc, b_, c_, dt_raw = _split(cfg, u)
+    xbc_new = torch.cat([xc, b_, c_], -1)  # [B,1,C]
+    conv_buf = torch.cat([state["conv"], xbc_new], dim=1)  # [B,W,C]
+    out = torch.einsum("bwc,wc->bc", conv_buf, p["conv_w"]) + p["conv_b"]
+    xbc = F.silu(out.float()).to(x_in.dtype)[:, None, :]
+    xc, b_, c_ = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # [B,H]
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dt * a[None, :])  # [B,H]
+    xh = xc[:, 0].reshape(b, h, hp).float()
+    bf = b_[:, 0].float()  # [B,N]
+    cf = c_[:, 0].float()
+    hs = state["h"] * da[..., None, None] + torch.einsum("bn,bh,bhp->bhnp", bf, dt, xh)
+    y = torch.einsum("bn,bhnp->bhp", cf, hs) + xh * p["d_skip"][None, :, None]
+    y = y.reshape(b, 1, di).to(x_in.dtype)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
+    return res + torch.matmul(y, p["out_proj"]), {"h": hs, "conv": conv_buf[:, 1:, :]}
+
+
+def init_ssm_state(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):
+    d, di, h, hp, n = dims(cfg)
+    return {
+        "h": torch.zeros((batch, h, n, hp), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, CONV_W - 1, di + 2 * n), dtype=dtype, device=device),
+    }

@@ -1,9 +1,10 @@
 """Dense / MoE decoder-only transformer (gemma, deepseek, qwen, danube,
-granite, moonshot).
+granite, moonshot, paligemma's backbone, zamba2's shared block).
 
 Port of ``repro/models/transformer.py``: pre-norm attention and gated MLP
 or MoE blocks with residuals, a python loop over the layers, tied or untied
-unembedding, and the one-token decode step over a per-layer KV cache. An
+unembedding, an optional embedded prefix (paligemma's image) before the
+tokens, and the one-token decode step over a per-layer KV cache. An
 MoE model's forward returns the mean of its layers' load-balance losses as
 ``moe_aux``; a dense model's returns no aux.
 """
@@ -14,7 +15,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import apply_mlp, apply_norm, embed_init, init_mlp, init_norm
+from repro_torch.models.common import (apply_mlp, apply_norm, embed_init, init_mlp, init_norm,
+                                       norm_shapes)
 
 
 def init_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
@@ -69,10 +71,10 @@ def init_lm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def param_shapes(cfg) -> dict:
-    """The shape of every leaf :func:`init_lm` makes, in the same tree."""
+def block_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_block` makes."""
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    norm = {"scale": (d,)} if cfg.norm == "rmsnorm" else {"scale": (d,), "bias": (d,)}
+    norm = norm_shapes(d, cfg.norm)
     att = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d)}
     if cfg.qkv_bias:
         att.update(bq=(h, hd), bk=(k, hd), bv=(k, hd))
@@ -81,10 +83,16 @@ def param_shapes(cfg) -> dict:
         block["moe"] = moe_lib.moe_param_shapes(cfg)
     else:
         block["mlp"] = {"wi": (d, cfg.d_ff), "wg": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
-    out = {"embed": (cfg.vocab, d), "ln_f": norm}
+    return block
+
+
+def param_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_lm` makes, in the same tree."""
+    block = block_shapes(cfg)
+    out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": norm_shapes(cfg.d_model, cfg.norm)}
     out.update({f"layer_{i}": block for i in range(cfg.n_layers)})
     if not cfg.tie_embeddings:
-        out["lm_head"] = (cfg.vocab, d)
+        out["lm_head"] = (cfg.vocab, cfg.d_model)
     return out
 
 
@@ -105,10 +113,14 @@ def unembed(params, h, cfg):
     return torch.matmul(h, table.t()).float()  # the product in the working type, then f32
 
 
-def forward(params, tokens, cfg, *, last_only: bool = False):
+def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False):
     """Token logits for train/prefill; ``last_only`` keeps the last position.
-    The aux: ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``."""
+    ``prefix_emb`` (the VLM's projected image): embeddings put before the
+    token embeddings in sequence order, cast to their type. The aux:
+    ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``."""
     h = embed_tokens(params, tokens, cfg)
+    if prefix_emb is not None:
+        h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
     aux_tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         h, aux = apply_block(params[f"layer_{i}"], h, cfg, window=_window(cfg, i))

@@ -1,0 +1,335 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) + sLSTM (scalar
+memory, true recurrence), alternating 1:1 (xlstm-350m config).
+
+Port of ``repro/models/xlstm.py``. The mLSTM forward stabilises the
+exponential input gate with a *global* max-shift ``m_g = max_t ĩ_t`` taken
+outside the chunk loop (a Python loop here, ``lax.scan`` there), and its
+denominator threshold is ``exp(-m_g)``; decode carries a running ``m``
+instead. The two agree to the reference's own 2e-3, not to the last bit.
+The sLSTM is a step loop over a float32 per-head block-diagonal ``R``,
+followed by a GeGLU feed-forward (``f = int(8·d/3/64)·64``, the tanh form of
+gelu). Both ``m`` states start at -30.0 in :func:`init_xlstm_cache`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
+                                       normal_init, norm_shapes)
+
+M_INIT = -30.0
+
+
+def _decay(x):
+    return torch.exp(torch.clamp(x, -60.0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_dims(cfg):
+    d = cfg.d_model
+    di = 2 * d  # pf = 2 up-projection
+    h = cfg.n_heads
+    p = di // h
+    return d, di, h, p
+
+
+def init_mlstm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    d, di, h, p = mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "ln": init_norm(d, cfg.norm, device),
+        "up_x": dense_init(gen, (d, di), 0, dtype, device),
+        "up_z": dense_init(gen, (d, di), 0, dtype, device),
+        "wq": dense_init(gen, (di, di), 0, dtype, device),
+        "wk": dense_init(gen, (di, di), 0, dtype, device),
+        "wv": dense_init(gen, (di, di), 0, dtype, device),
+        "w_if": dense_init(gen, (di, 2 * h), 0, torch.float32, device),
+        "b_if": torch.cat([torch.zeros(h, **f32), torch.full((h,), 3.0, **f32)]),
+        "out_norm": init_norm(di, cfg.norm, device),
+        "down": dense_init(gen, (di, d), 0, dtype, device),
+    }
+
+
+def mlstm_shapes(cfg) -> dict:
+    d, di, h, _ = mlstm_dims(cfg)
+    return {"ln": norm_shapes(d, cfg.norm), "up_x": (d, di), "up_z": (d, di),
+            "wq": (di, di), "wk": (di, di), "wv": (di, di), "w_if": (di, 2 * h),
+            "b_if": (2 * h,), "out_norm": norm_shapes(di, cfg.norm), "down": (di, d)}
+
+
+def _mlstm_qkvg(p, u, cfg):
+    d, di, h, hp = mlstm_dims(cfg)
+    b, s, _ = u.shape
+    q = torch.matmul(u, p["wq"]).reshape(b, s, h, hp)
+    # the reference divides by sqrt(hp) rounded to float32, then to u's type
+    scale = torch.tensor(float(np.sqrt(np.float32(hp))), dtype=u.dtype, device=u.device)
+    k = torch.matmul(u, p["wk"]).reshape(b, s, h, hp) / scale
+    v = torch.matmul(u, p["wv"]).reshape(b, s, h, hp)
+    gates = torch.matmul(u.float(), p["w_if"]) + p["b_if"]
+    i_raw, f_raw = gates[..., :h], gates[..., h:]
+    return q.float(), k.float(), v.float(), i_raw, f_raw
+
+
+def _mlstm_out(p, hout, z, x, cfg):
+    """Out-norm, the ``silu(z)`` gate, the down projection and the residual."""
+    hout = apply_norm(p["out_norm"], hout.to(x.dtype), cfg.norm, cfg.norm_eps)
+    hout = hout * F.silu(z.float()).to(hout.dtype)
+    return x + torch.matmul(hout, p["down"])
+
+
+def mlstm_forward(p, x, cfg, *, chunk: int = 256):
+    """Full-sequence mLSTM. x: [B, S, d] → [B, S, d]; ``chunk`` (at most S)
+    must divide S."""
+    d, di, h, hp = mlstm_dims(cfg)
+    b, s, _ = x.shape
+    q_len = min(chunk, s)
+    if s % q_len:
+        raise ValueError(f"mlstm_forward: sequence length {s} is not a multiple of the "
+                         f"chunk {q_len}")
+    nc = s // q_len
+
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    u = torch.matmul(xin, p["up_x"])
+    z = torch.matmul(xin, p["up_z"])
+    q, k, v, i_raw, f_raw = _mlstm_qkvg(p, u, cfg)
+
+    m_g = torch.amax(i_raw, dim=1, keepdim=True)  # [B,1,H] global stabilizer
+    iw = torch.exp(i_raw - m_g)  # [B,S,H]
+    logf = F.logsigmoid(f_raw)  # ≤ 0
+    lcs_full = torch.cumsum(logf.reshape(b, nc, q_len, h), dim=2)
+    ltot = lcs_full[:, :, -1, :]
+
+    qr = q.reshape(b, nc, q_len, h, hp)
+    kr = k.reshape(b, nc, q_len, h, hp)
+    vr = v.reshape(b, nc, q_len, h, hp)
+    ir = iw.reshape(b, nc, q_len, h)
+    iota = torch.arange(q_len, device=x.device)
+    causal = (iota[:, None] >= iota[None, :]).float()
+
+    cst = torch.zeros((b, h, hp, hp), dtype=torch.float32, device=x.device)
+    nst = torch.zeros((b, h, hp), dtype=torch.float32, device=x.device)
+    nums, dens = [], []
+    for c in range(nc):
+        qc, kc, vc, ic, lc, lt = qr[:, c], kr[:, c], vr[:, c], ir[:, c], lcs_full[:, c], ltot[:, c]
+        dec = _decay(lc[:, :, None, :] - lc[:, None, :, :])
+        wgt = dec * causal[None, :, :, None] * ic[:, None, :, :]  # [B,i,j,H]
+        scores = torch.einsum("bihp,bjhp->bijh", qc, kc)
+        num_intra = torch.einsum("bijh,bjhp->bihp", scores * wgt, vc)
+        den_vec = torch.einsum("bijh,bjhp->bihp", wgt, kc)  # Σ_j dec·i·k_j
+        dec_i = _decay(lc)
+        num_carry = torch.einsum("bihp,bhpr->bihr", qc, cst) * dec_i[..., None]
+        den_carry = torch.einsum("bihp,bhp->bih", qc, nst) * dec_i
+        nums.append(num_intra + num_carry)
+        dens.append(torch.sum(qc * den_vec, dim=-1) + den_carry)
+        dec_j = _decay(lt[:, None, :] - lc) * ic
+        cst = _decay(lt)[..., None, None] * cst + torch.einsum(
+            "bjh,bjhp,bjhr->bhpr", dec_j, kc, vc)
+        nst = _decay(lt)[..., None] * nst + torch.einsum("bjh,bjhp->bhp", dec_j, kc)
+    num = torch.stack(nums, dim=1).reshape(b, s, h, hp)
+    den = torch.stack(dens, dim=1).reshape(b, s, h)
+    thr = torch.exp(-m_g)  # [B,1,H]
+    hout = num / torch.maximum(torch.abs(den), thr)[..., None]
+    return _mlstm_out(p, hout.reshape(b, s, di), z, x, cfg)
+
+
+def mlstm_decode(p, x, cfg, state):
+    """state = {"c": [B,H,P,P], "n": [B,H,P], "m": [B,H]} (true m-state)."""
+    d, di, h, hp = mlstm_dims(cfg)
+    b = x.shape[0]
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    u = torch.matmul(xin, p["up_x"])
+    z = torch.matmul(xin, p["up_z"])
+    q, k, v, i_raw, f_raw = _mlstm_qkvg(p, u, cfg)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [B,H,P]
+    i_raw, f_raw = i_raw[:, 0], f_raw[:, 0]  # [B,H]
+    logf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(logf + state["m"], i_raw)
+    fw = _decay(logf + state["m"] - m_new)
+    iw = _decay(i_raw - m_new)
+    c_new = fw[..., None, None] * state["c"] + iw[..., None, None] * torch.einsum(
+        "bhp,bhr->bhpr", k, v)
+    n_new = fw[..., None] * state["n"] + iw[..., None] * k
+    num = torch.einsum("bhp,bhpr->bhr", q, c_new)
+    den = torch.einsum("bhp,bhp->bh", q, n_new)
+    hout = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    out = _mlstm_out(p, hout.reshape(b, 1, di), z, x, cfg)
+    return out, {"c": c_new, "n": n_new, "m": m_new}
+
+
+def init_mlstm_state(cfg, batch: int, device="cuda"):
+    d, di, h, hp = mlstm_dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros((batch, h, hp, hp), **f32), "n": torch.zeros((batch, h, hp), **f32),
+            "m": torch.full((batch, h), M_INIT, **f32)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_dims(cfg):
+    d = cfg.d_model
+    h = cfg.n_heads
+    return d, h, d // h
+
+
+def _ffn_width(d: int) -> int:
+    return int(8 * d / 3 / 64) * 64  # GeGLU pf 4/3 ×2 (xLSTM paper)
+
+
+def init_slstm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    d, h, dh = slstm_dims(cfg)
+    f = _ffn_width(d)
+    return {
+        "ln": init_norm(d, cfg.norm, device),
+        "w_in": dense_init(gen, (d, 4, h, dh), 0, dtype, device),
+        "r": normal_init(gen, (4, h, dh, dh), 1.0 / math.sqrt(dh), torch.float32, device),
+        "b": torch.zeros((4, h, dh), dtype=torch.float32, device=device),
+        "out_norm": init_norm(d, cfg.norm, device),
+        "ln_ffn": init_norm(d, cfg.norm, device),
+        "ffn_wi": dense_init(gen, (d, f), 0, dtype, device),
+        "ffn_wg": dense_init(gen, (d, f), 0, dtype, device),
+        "ffn_wo": dense_init(gen, (f, d), 0, dtype, device),
+    }
+
+
+def slstm_shapes(cfg) -> dict:
+    d, h, dh = slstm_dims(cfg)
+    f = _ffn_width(d)
+    norm = norm_shapes(d, cfg.norm)
+    return {"ln": norm, "w_in": (d, 4, h, dh), "r": (4, h, dh, dh), "b": (4, h, dh),
+            "out_norm": norm, "ln_ffn": norm, "ffn_wi": (d, f), "ffn_wg": (d, f),
+            "ffn_wo": (f, d)}
+
+
+def _slstm_cell(r, gin, st):
+    """One step. gin: [B,4,H,dh] pre-activations; st = (c, n, hprev, m)."""
+    c, n, hprev, m = st
+    rec = torch.einsum("bhx,ghxy->bghy", hprev, r)  # [B,4,H,dh]
+    za, ia, fa, oa = [gin[:, g] + rec[:, g] for g in range(4)]
+    z = torch.tanh(za)
+    o = torch.sigmoid(oa)
+    m_new = torch.maximum(fa + m, ia)
+    i = _decay(ia - m_new)
+    f = _decay(fa + m - m_new)
+    c_new = f * c + i * z
+    n_new = f * n + i
+    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    return (c_new, n_new, h_new, m_new)
+
+
+def _slstm_gates(p, x, cfg):
+    """The four gates' input pre-activations, float32: [B, S, 4, H, dh]."""
+    d, h, dh = slstm_dims(cfg)
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    gin = torch.matmul(xin, p["w_in"].reshape(d, -1)).unflatten(-1, (4, h, dh))
+    return gin.float() + p["b"][None, None]
+
+
+def _slstm_out(p, hout, x, cfg):
+    """Out-norm and residual, then the post-block GeGLU FFN (pf 4/3 ×2)."""
+    hout = apply_norm(p["out_norm"], hout.to(x.dtype), cfg.norm, cfg.norm_eps)
+    x = x + hout
+    hf = apply_norm(p["ln_ffn"], x, cfg.norm, cfg.norm_eps)
+    a = torch.matmul(hf, p["ffn_wi"])
+    g = torch.matmul(hf, p["ffn_wg"])
+    a = F.gelu(g.float(), approximate="tanh").to(x.dtype) * a
+    return x + torch.matmul(a, p["ffn_wo"])
+
+
+def slstm_forward(p, x, cfg):
+    d, h, dh = slstm_dims(cfg)
+    b, s, _ = x.shape
+    gin = _slstm_gates(p, x, cfg)  # [B,S,4,H,dh]
+    z0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+    st = (z0, z0, z0, torch.full((b, h, dh), M_INIT, dtype=torch.float32, device=x.device))
+    hs = []
+    for t in range(s):
+        st = _slstm_cell(p["r"], gin[:, t], st)
+        hs.append(st[2])
+    return _slstm_out(p, torch.stack(hs, dim=1).reshape(b, s, d), x, cfg)
+
+
+def slstm_decode(p, x, cfg, state):
+    d, h, dh = slstm_dims(cfg)
+    b = x.shape[0]
+    gin = _slstm_gates(p, x, cfg)[:, 0]
+    c, n, hh, m = _slstm_cell(p["r"], gin, (state["c"], state["n"], state["h"], state["m"]))
+    return _slstm_out(p, hh.reshape(b, 1, d), x, cfg), {"c": c, "n": n, "h": hh, "m": m}
+
+
+def init_slstm_state(cfg, batch: int, device="cuda"):
+    d, h, dh = slstm_dims(cfg)
+    shape, f32 = (batch, h, dh), dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+            "h": torch.zeros(shape, **f32), "m": torch.full(shape, M_INIT, **f32)}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM language model: alternating mLSTM (even) / sLSTM (odd) blocks
+# ---------------------------------------------------------------------------
+
+
+def is_mlstm(i: int) -> bool:
+    return i % 2 == 0
+
+
+def init_xlstm_lm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    p = {
+        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
+        "ln_f": init_norm(cfg.d_model, cfg.norm, device),
+    }
+    for i in range(cfg.n_layers):
+        init = init_mlstm if is_mlstm(i) else init_slstm
+        p[f"layer_{i}"] = init(gen, cfg, dtype, device)
+    return p
+
+
+def param_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_xlstm_lm` makes."""
+    out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": norm_shapes(cfg.d_model, cfg.norm)}
+    out.update({f"layer_{i}": mlstm_shapes(cfg) if is_mlstm(i) else slstm_shapes(cfg)
+                for i in range(cfg.n_layers)})
+    return out
+
+
+def _logits(params, h, cfg):
+    h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
+    return torch.matmul(h, params["embed"].t()).float()
+
+
+def xlstm_forward(params, tokens, cfg, *, last_only: bool = False):
+    h = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        fn = mlstm_forward if is_mlstm(i) else slstm_forward
+        h = fn(params[f"layer_{i}"], h, cfg)
+    if last_only:
+        h = h[:, -1:]
+    return _logits(params, h, cfg), {}
+
+
+def xlstm_decode_step(params, token, cache, pos, cfg):
+    del pos  # O(1) state — position-free recurrence
+    h = params["embed"][token[:, None]]
+    new_cache = {}
+    for i in range(cfg.n_layers):
+        fn = mlstm_decode if is_mlstm(i) else slstm_decode
+        h, new_cache[f"layer_{i}"] = fn(params[f"layer_{i}"], h, cfg, cache[f"layer_{i}"])
+    return _logits(params, h, cfg)[:, 0], new_cache
+
+
+def init_xlstm_cache(cfg, batch: int, seq_len: int, device="cuda"):
+    del seq_len  # constant-size recurrent state
+    return {f"layer_{i}": (init_mlstm_state if is_mlstm(i) else init_slstm_state)(
+        cfg, batch, device) for i in range(cfg.n_layers)}
+

@@ -1,0 +1,80 @@
+"""Zamba2 hybrid: Mamba2 blocks + one *shared* attention block applied
+every ``attn_every`` blocks.
+
+Port of ``repro/models/zamba2.py``. The shared block is a full GQA
+transformer block (attention + gated MLP, ``transformer.apply_block``) with
+the same weights at every site; when decoding, each site keeps its own KV
+cache under ``attn_{i}``. The token embedding is a plain gather (no √d
+scale) and the head is tied to it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import mamba2, transformer
+from repro_torch.models.common import apply_norm, embed_init, init_norm, norm_shapes
+
+
+def attn_sites(cfg) -> list[int]:
+    period = max(cfg.attn_every, 1)
+    return [i for i in range(cfg.n_layers) if (i + 1) % period == 0]
+
+
+def init_zamba2(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    p = {
+        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
+        "ln_f": init_norm(cfg.d_model, cfg.norm, device),
+        "shared": transformer.init_block(gen, cfg, dtype, device),
+    }
+    for i in range(cfg.n_layers):
+        p[f"ssm_{i}"] = mamba2.init_mamba2(gen, cfg, dtype, device)
+    return p
+
+
+def param_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_zamba2` makes."""
+    out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": norm_shapes(cfg.d_model, cfg.norm),
+           "shared": transformer.block_shapes(cfg)}
+    out.update({f"ssm_{i}": mamba2.param_shapes(cfg) for i in range(cfg.n_layers)})
+    return out
+
+
+def _logits(params, h, cfg):
+    h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
+    return torch.matmul(h, params["embed"].t()).float()
+
+
+def forward(params, tokens, cfg, *, last_only: bool = False):
+    h = params["embed"][tokens]
+    sites = set(attn_sites(cfg))
+    for i in range(cfg.n_layers):
+        h = mamba2.ssd_forward(params[f"ssm_{i}"], h, cfg)
+        if i in sites:
+            h, _ = transformer.apply_block(params["shared"], h, cfg)
+    if last_only:
+        h = h[:, -1:]
+    return _logits(params, h, cfg), {}
+
+
+def decode_step(params, token, cache, pos, cfg):
+    h = params["embed"][token[:, None]]
+    sites = set(attn_sites(cfg))
+    new_cache = {}
+    for i in range(cfg.n_layers):
+        h, new_cache[f"ssm_{i}"] = mamba2.ssd_decode(params[f"ssm_{i}"], h, cfg,
+                                                      cache[f"ssm_{i}"])
+        if i in sites:
+            h, new_cache[f"attn_{i}"] = transformer.apply_block_decode(
+                params["shared"], h, cfg, cache[f"attn_{i}"], pos)
+    return _logits(params, h, cfg)[:, 0], new_cache
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
+    c = {f"ssm_{i}": mamba2.init_ssm_state(cfg, batch, dtype, device)
+         for i in range(cfg.n_layers)}
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    for i in attn_sites(cfg):
+        c[f"attn_{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return c

@@ -56,7 +56,8 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.configs.ssumm_paper", "repro_torch.models",
               "repro_torch.models.common", "repro_torch.models.flash",
               "repro_torch.models.attention", "repro_torch.models.transformer",
-              "repro_torch.models.moe",
+              "repro_torch.models.moe", "repro_torch.models.mamba2",
+              "repro_torch.models.zamba2", "repro_torch.models.xlstm",
               "repro_torch.models.api", "repro_torch.launch.serve"):
         assert m in res["modules"]
 
@@ -184,7 +185,8 @@ def test_lm_server_and_baselines_without_device_refuse_the_cpu():
     src, dst = np.array([0, 1, 2]), np.array([1, 2, 3])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1", "--slots", "1"])
-    for arch in ("qwen2_5_14b", "granite_moe_3b_a800m"):
+    for arch in ("qwen2_5_14b", "granite_moe_3b_a800m", "zamba2_7b", "xlstm_350m",
+                 "paligemma_3b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(get_smoke_config(arch))
     with pytest.raises(RuntimeError, match="CUDA"):

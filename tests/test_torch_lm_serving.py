@@ -2,9 +2,13 @@
 (``repro.launch.serve``) on the CPU: the scenarios of ``tests/test_serving.py``
 (slot counts 1, 2 and 4, ragged prompts, admissions mid-flight) with the
 reference's weights carried across give the reference's token lists exactly,
-for dense models and for granite's MoE (empty slots route token 0, as the
-reference's do: decode is dropless, so they take no capacity from live slots);
-the port's own batching invariance; the launcher's JSON line."""
+for dense models, for granite's MoE (empty slots route token 0, as the
+reference's do: decode is dropless, so they take no capacity from live
+slots) and for the recurrent families, zamba2 and xLSTM, whose state the
+admission seam (``Model.clear_slot``, ``restore_slots``) keeps apart; a
+server without the seam leaks state and parts from the reference; the
+stabiliser quirk the seam copies; the port's own batching invariance; the
+launcher's JSON line."""
 
 from __future__ import annotations
 
@@ -20,6 +24,10 @@ from repro.configs import get_smoke_config as ref_smoke_config
 from repro.launch.serve import BatchServer as RefServer
 from repro.launch.serve import Request as RefRequest
 from repro.models.api import build_model as ref_build_model
+
+import dataclasses
+
+import jax.numpy as jnp
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.convert import lm_params_from_numpy
@@ -67,11 +75,59 @@ def serve_reference(arch, slots, n=5, gen_len=6, ragged=True):
 
 
 @pytest.mark.parametrize("slots", [1, 2, 4])
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "h2o_danube_1_8b", "granite_moe_3b_a800m"])
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "h2o_danube_1_8b", "granite_moe_3b_a800m",
+                                  "zamba2_7b", "xlstm_350m"])
 def test_server_tokens_equal_the_reference(arch, slots):
     want = serve_reference(arch, slots)
     got = serve_port(arch, slots)
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_350m"])
+def test_a_server_without_the_seam_leaks_state(arch):
+    """The negative control: the same recurrent server with ``clear_slot`` and
+    ``restore_slots`` unset, on the stream the parity test serves at 2 slots
+    (5 ragged requests, seed 0: requests 1 and 3 teacher-force their prompts
+    while requests 0 and 2 hold the other slot, and requests 2-4 reuse slots
+    that finished requests left), gives other tokens than the reference, so
+    the parity tests can see a leak."""
+    cfg = get_smoke_config(arch)
+    server = BatchServer(cfg, slots=2, max_len=MAX_LEN,
+                         params=lm_params_from_numpy(ref_params(arch), cfg, "cpu"), device="cpu")
+    server.model = dataclasses.replace(server.model, clear_slot=None, restore_slots=None)
+    got = _drain(server, _requests(Request, cfg.vocab, 5, ragged=True))
+    want = serve_reference(arch, 2)
+    assert got.keys() == want.keys() and got != want
+
+
+def test_a_cleared_slot_holds_the_copied_stabiliser_quirk():
+    """The reference's server zeroes every leaf of an admitted slot, so an
+    xLSTM slot it has cleared starts its stabilisers ``m`` at 0, where
+    ``init_cache`` (and the forward) start at -30; the port copies that."""
+    arch = "xlstm_350m"
+    cfg = get_smoke_config(arch)
+    server = BatchServer(cfg, slots=2, max_len=MAX_LEN, seed=0, device="cpu")
+    init = server.model.init_cache(2, MAX_LEN)
+    seen = []
+    clear = server.model.clear_slot
+
+    def recorded(cache, s):
+        cache = clear(cache, s)
+        seen.append({k: cache[k]["m"].clone() for k in ("layer_0", "layer_1")})
+        return cache
+
+    server.model = dataclasses.replace(server.model, clear_slot=recorded)
+    _drain(server, _requests(Request, cfg.vocab, 3, gen_len=3))
+    assert len(seen) == 3  # one clear an admission
+    # admission 2 goes into slot 0; slot 1 keeps the state request 1 left
+    for k in ("layer_0", "layer_1"):
+        assert (init[k]["m"] == -30.0).all()
+        assert (seen[0][k][0] == 0.0).all() and (seen[0][k][1] == -30.0).all()
+        assert (seen[2][k][0] == 0.0).all() and (seen[2][k][1] != 0.0).all()
+    ref = RefServer(ref_smoke_config(arch), slots=2, max_len=MAX_LEN, seed=0)
+    cleared = ref._clear(ref.cache, jnp.asarray([True, False]))
+    assert (np.asarray(cleared["layer_0"]["m"][0]) == 0.0).all()
+    assert (np.asarray(cleared["layer_0"]["m"][1]) == -30.0).all()
 
 
 def test_server_tokens_equal_the_reference_without_ragged_prompts():
@@ -112,3 +168,11 @@ def test_main_prints_the_reference_keys(capsys):
     # token), then one a further token: requests 0 and 1 share 3 steps in 2
     # slots, request 2 takes 3 alone: 3·4 + 3 + 3
     assert res["decode_steps"] == 18
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_350m", "paligemma_3b"])
+def test_main_serves_the_new_families(arch, capsys):
+    res = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                      "--slots", "2", "--prompt-len", "4", "--gen-len", "4", "--max-len", "32"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["tokens"] == 12
+    assert res["requests"] == 3 and res["decode_steps"] == 18
