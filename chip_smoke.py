@@ -91,11 +91,11 @@ card and CPU runs. Phases, one line each or a few:
      (ego-facebook 0.1, seed 1, T = 10), each kernel launched once a round;
   13. LM serving: (a) qwen2.5-14B at full width, 2 layers, float32, TF32 off:
      forward on the card against the CPU, decode against forward (rtol and
-     atol 1e-3); (b) the full 48-layer bfloat16 model initialised on the
-     card from a seed, 8 requests through ``BatchServer`` (8 slots, prompt
-     32, gen 32, max_len 128) twice, the same tokens; init time, median
-     decode step against its bytes bound, tokens/s, peak memory, three
-     profiled steps;
+     atol 1e-3); (b) 12 of the 48 layers at full width in bfloat16 (the
+     depth cut for the time limit), initialised on the card from a seed, 8
+     requests through ``BatchServer`` (8 slots, prompt 32, gen 32, max_len
+     128) twice, the same tokens; init time, median decode step against its
+     bytes bound, tokens/s, peak memory, three profiled steps;
   14. the MoE family's serving path (no hand kernel on it: the reference's
      MoE is plain jnp): (a) moonshot-v1-16b-a3b at full width, 2 layers,
      float32, TF32 off, capacity factor 16: forward on the card against the
@@ -114,8 +114,9 @@ card and CPU runs. Phases, one line each or a few:
      zamba2-7b at full width, 6 layers (the shared attention block at
      i = 5), float32, TF32 off: forward on the card against the CPU, decode
      against forward (rtol and atol 1e-3), the forward at SSM chunk 8
-     against one chunk of 16 (the carried state); (b) zamba2-7b, all 81
-     bfloat16 layers, served as in 13b, twice, the same tokens; init time,
+     against one chunk of 16 (the carried state); (b) zamba2-7b, 27 of its
+     81 layers in bfloat16 (the depth cut for the time limit; 4 shared-block
+     sites), served as in 13b, twice, the same tokens; init time,
      median decode step against its bytes bound (parameters, the SSM and
      conv states read and written, the 13 sites' KV caches), tokens/s, peak
      memory, three profiled steps, the hand kernels' launches (none); (c)
@@ -127,12 +128,36 @@ card and CPU runs. Phases, one line each or a few:
      tokens, card against CPU (1e-3); all 18 bfloat16 layers: prefill_step
      on 8 x (256 image + 32 text) tokens, its median of 5 against the FLOP
      bound at 989 TFLOP/s, peak memory, its logits against the forward's
-     last position, the hand kernels' launches (none).
+     last position, the hand kernels' launches (none);
+  16. whisper-large-v3's encoder-decoder (no hand kernel on it: the
+     reference's whisper is plain jnp): (a) at full width, 2 encoder + 2
+     decoder layers, float32, TF32 off: the forward on the card against the
+     CPU, and the decode step with the encoder's cross K/V in the cache
+     (``whisper.fill_cross_cache``) against the forward, position by
+     position (rtol and atol 1e-3); (b) all 32 + 32 bfloat16 layers: encode
+     of 8 x 1500 frames, its median of 5 against the FLOP bound and one
+     profiled call; the cross K/V projection; prefill_step; 8 requests
+     through ``BatchServer`` as in 13b, twice, the same tokens (the cross
+     K/V zero, as the reference serves whisper); median decode step against
+     its bytes bound, peak memory, three profiled steps with the encoder's
+     cross K/V in the cache, the hand kernels' launches (none);
+  17. training (no hand kernel on it: the reference's loss, AdamW and
+     accumulation are plain jnp): (a) h2o-danube-1.8b at full width, 2
+     float32 layers, TF32 off: the loss and every gradient leaf on the card
+     against the CPU, and one AdamW step on the same gradients; (b) all 24
+     bfloat16 layers through ``repro_torch.launch.train`` at batch 8 x seq
+     128 for 6 steps, twice: the same losses and final parameters bit for
+     bit, the median step against the FLOP + AdamW-bytes bound, peak memory,
+     one profiled step, the hand kernels' launches (none); (c) 2 bfloat16
+     layers at full width, checkpoints at steps 3 and 6, the step-6 one
+     removed and the run resumed from 3: equal bit for bit to the
+     uninterrupted run; ``--compress int8``: the wire bytes equal to the
+     priced.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c and 15d), and as the last line
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b and 17b), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
 line, when CUDA is unavailable, when the package is missing, or when any
 phase fails. Imports nothing of the JAX package.
@@ -2214,7 +2239,9 @@ def run(tmp: str) -> int:
         del model, params, fwd
         torch.cuda.empty_cache()
 
-        # (b) service: the full 48-layer bfloat16 model through BatchServer
+        # (b) service: 12 of the 48 layers at full width, bfloat16, through
+        # BatchServer (the depth cut to keep the script inside its time limit)
+        full = dataclasses.replace(full, n_layers=12)
         slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -2493,7 +2520,10 @@ def run(tmp: str) -> int:
         del model, params, fwd, chunked
         torch.cuda.empty_cache()
 
-        # (b) zamba2-7b served: all 81 layers, bfloat16
+        # (b) zamba2-7b served: 27 of the 81 layers (the shared block at 4 of
+        # its 13 sites), bfloat16; the depth cut to keep the script inside its
+        # time limit
+        full = dataclasses.replace(full, n_layers=27)
         sites = len(zamba2.attn_sites(full))
         ctx["hybrid_counts"] = service("15b", full, lambda c: (
             tree_bytes(c, lambda k: k.startswith("ssm_")),
@@ -2585,6 +2615,291 @@ def run(tmp: str) -> int:
 
     smoke.phase("15 recurrent and image-prefix families", phase_recurrent)
 
+    # ---- 16. whisper-large-v3's encoder-decoder at full width ----------------
+    def phase_whisper():
+        from repro_torch.configs import get_config
+        from repro_torch.models import whisper
+        from repro_torch.models.api import build_model
+        from repro_torch.models.common import param_bytes
+        errors = []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        full = get_config("whisper_large_v3")
+        rng = np.random.default_rng(0)
+
+        # (a) 2 encoder + 2 decoder layers, float32: the forward on the card
+        # against the CPU; decode with the encoder's cross K/V in the cache
+        # against the teacher-forced decoder, position by position
+        cfg = dataclasses.replace(full, n_layers=2, enc_layers=2, dtype="float32")
+        b, n = 1, 16
+        frames = torch.as_tensor(rng.standard_normal((b, cfg.enc_len, cfg.d_model)),
+                                 dtype=torch.float32, device=dev)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, n)), device=dev)
+        model, params, fwd, text, errs = card_vs_cpu(
+            torch, cfg, {"frames": frames, "tokens": tokens}, tol=1e-3)
+        errors += [f"16a: {e}" for e in errs]
+        enc = whisper.encode(params, frames, cfg)
+        cache = whisper.fill_cross_cache(params, model.init_cache(b, n), enc, cfg)
+        dec_err, dec_ok = 0.0, True
+        for t in range(n):
+            lg, cache = model.serve_step(params, {"token": tokens[:, t], "pos": torch.tensor(t),
+                                                  "cache": cache})
+            dec_err = max(dec_err, float((lg - fwd[:, t]).abs().max()))
+            dec_ok &= torch.allclose(lg, fwd[:, t], rtol=1e-3, atol=1e-3)
+        if not dec_ok:
+            errors.append("16a: decode with the encoder's cross cache vs forward beyond tolerance")
+        log(f"16a whisper-large-v3 full width (d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}, enc_len {cfg.enc_len}), 2 encoder + 2 decoder "
+            f"layers, float32, TF32 off, {param_bytes(params)} parameter bytes, frames [{b}, "
+            f"{cfg.enc_len}, {cfg.d_model}] + tokens [{b}, {n}]: {text}; decode with the "
+            f"encoder's cross K/V vs the forward on the card max abs diff {dec_err:.3g} (rtol "
+            f"and atol 0.001)")
+        del model, params, fwd, enc, cache
+        torch.cuda.empty_cache()
+
+        # (b) all 32 + 32 layers, bfloat16
+        slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_model(full, "cuda")
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pbytes = param_bytes(params)
+        d, f, t_enc = full.d_model, full.d_ff, full.enc_len
+        frames = torch.randn((slots, t_enc, d), device=dev, dtype=torch.bfloat16)
+        # the encoder's FLOPs: every layer's products over all frames, and its
+        # unmasked attention (QK^T and PV)
+        enc_layer = sum(int(np.prod(x.shape)) for k in ("attn", "mlp")
+                        for name, x in params["enc_0"][k].items() if name.startswith("w"))
+        enc_flops = full.enc_layers * (2 * slots * t_enc * enc_layer
+                                       + 4 * slots * t_enc * t_enc * full.n_heads * full.hd)
+        enc_bound = enc_flops / BF16_FLOPS * 1e3
+        enc_out = whisper.encode(params, frames, full)
+        encode_ms = time_single(torch, lambda: whisper.encode(params, frames, full), reps=5)
+        profiled(torch, lambda: (whisper.encode(params, frames, full), torch.cuda.synchronize()),
+                 "16b", "encode")
+        cache = model.init_cache(slots, max_len)
+        xkv_flops = 2 * slots * t_enc * d * 2 * d * full.n_layers
+        xkv_ms = time_single(torch, lambda: whisper.fill_cross_cache(params, cache, enc_out, full),
+                             reps=5)
+        prompt_tokens = torch.as_tensor(rng.integers(0, full.vocab, (slots, prompt_len)),
+                                        device=dev)
+        pre = model.prefill_step(params, {"frames": frames, "tokens": prompt_tokens})
+        prefill_ms = time_single(torch, lambda: model.prefill_step(
+            params, {"frames": frames, "tokens": prompt_tokens}), reps=5)
+        if not bool(torch.isfinite(pre).all()) or tuple(pre.shape) != (slots, full.vocab):
+            errors.append(f"16b: prefill logits {tuple(pre.shape)} not finite or misshaped")
+        if not bool(torch.isfinite(enc_out.float()).all()):
+            errors.append("16b: the encoder's output is not finite")
+        log(f"16b whisper-large-v3, {full.enc_layers} + {full.n_layers} layers, bfloat16: "
+            f"{pbytes} parameter bytes initialised on the card in {init_s:.2f} s; encode of "
+            f"{slots} x {t_enc} frames median of 5 {encode_ms:.3f} ms against the FLOP bound "
+            f"{enc_bound:.3f} ms ({enc_flops / 1e12:.4f} TFLOP at 989 TFLOP/s dense bfloat16), "
+            f"{100 * enc_bound / encode_ms:.1f}% of it; the cross K/V of {full.n_layers} layers "
+            f"projected into the cache {xkv_ms:.3f} ms (FLOP bound "
+            f"{xkv_flops / BF16_FLOPS * 1e3:.3f} ms); prefill_step (encode + {prompt_len} "
+            f"tokens, the last position's logits) {prefill_ms:.3f} ms")
+        del cache, pre
+
+        # served as the reference serves whisper: the cross K/V stay zero
+        prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32)
+                   for _ in range(nreq)]
+        ops.reset_launch_counts()
+        runs = serve_twice(full, params, prompts, slots=slots, max_len=max_len, gen_len=gen_len)
+        ctx["whisper_counts"] = ops.launch_counts()
+        (s0, out0, _), (s1, out1, _) = runs
+        line, med, ntok = service_line(runs)
+        peak = torch.cuda.max_memory_allocated()
+        # a decode step reads the decoder's weights but the cross wk/wv (the
+        # cross K/V come from the cache), the tied head, the self KV cache and
+        # the cross K/V; the encoder is not run
+        dec_w = sum(param_bytes(v) for k, v in params.items() if k.startswith("dec_")) - sum(
+            param_bytes(params[f"dec_{i}"]["cross_attn"][w])
+            for i in range(full.n_layers) for w in ("wk", "wv"))
+        head = param_bytes(params["embed"]) + param_bytes(params["ln_dec"])
+        cache_b = param_bytes(s0.cache)
+        bound_ms = (dec_w + head + cache_b) / HBM_BYTES_PER_S * 1e3
+        log(f"16b served: {nreq} requests, {slots} slots, prompt {prompt_len}, gen {gen_len}, "
+            f"max_len {max_len}, the cross K/V zero as the reference serves them: {line}; peak "
+            f"{peak / 2**30:.2f} GiB; step bound {bound_ms:.3f} ms (decoder weights without the "
+            f"cross wk/wv {dec_w} + head {head} + self and cross K/V cache {cache_b} bytes at "
+            f"3.35 TB/s), {100 * bound_ms / med:.1f}% of it; launches of the hand kernels over "
+            f"both runs {ctx['whisper_counts']}")
+        # a profiled decode step with the encoder's cross K/V in the cache
+        whisper.fill_cross_cache(params, s0.cache, enc_out, full)
+        tok = torch.as_tensor([out0[r][-1] for r in range(nreq)], dtype=torch.int64, device=dev)
+        pos = torch.full((slots,), prompt_len + gen_len - 1, dtype=torch.int64, device=dev)
+        profile_decode(torch, model, params, {"token": tok, "pos": pos, "cache": s0.cache}, "16b")
+        log(f"16b the two runs' tokens equal: {out0 == out1}")
+        if out0 != out1:
+            errors.append("16b: two runs' tokens differ")
+        if ntok != nreq * gen_len:
+            errors.append(f"16b: {ntok} tokens, not {nreq * gen_len}")
+        if any(ctx["whisper_counts"].values()):
+            errors.append(f"16b: a hand kernel launched on the path: {ctx['whisper_counts']}")
+        del model, params, runs, s0, s1, frames, enc_out
+        torch.cuda.empty_cache()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("16 whisper encoder-decoder", phase_whisper)
+
+    # ---- 17. training: h2o-danube-1.8b at full width ---------------------------
+    def phase_train():
+        from repro_torch.configs import RunConfig, get_config
+        from repro_torch.dist.compress import tree_leaves
+        from repro_torch.dist.microbatch import value_and_grad
+        from repro_torch.launch import train as train_lib
+        from repro_torch.models.api import build_model
+        from repro_torch.models.common import param_bytes, tree_to
+        from repro_torch.optim import adamw_init, adamw_update
+        errors = []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        full = get_config("h2o_danube_1_8b")
+        rng = np.random.default_rng(0)
+
+        # (a) 2 float32 layers: the loss and every gradient leaf on the card
+        # against the CPU (rtol 1e-3, atol 1e-4 of the largest gradient), then
+        # one AdamW step from the CPU's gradients on both (rtol and atol 1e-6
+        # of each leaf's largest magnitude)
+        cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 32)), device=dev)
+        model = build_model(cfg, "cuda")
+        params = model.init(0)
+        cpu_model, cpu_params = build_model(cfg, "cpu"), tree_to(params, "cpu")
+        (loss, _), grads = value_and_grad(lambda p: model.loss(p, {"tokens": tokens}), params)
+        (cpu_loss, _), cpu_grads = value_and_grad(
+            lambda p: cpu_model.loss(p, {"tokens": tokens.cpu()}), cpu_params)
+        got, want = tree_leaves(grads), tree_leaves(cpu_grads)
+        gmax = max(float(w.abs().max()) for w in want)
+        grad_err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        grads_ok = all(torch.allclose(g.cpu(), w, rtol=1e-3, atol=1e-4 * gmax)
+                       for g, w in zip(got, want))
+        loss_ok = abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+        lr = torch.tensor(3e-4)
+        new_cpu, _, m_cpu = adamw_update(cpu_grads, adamw_init(cpu_params), cpu_params, lr=lr)
+        new_card, _, m_card = adamw_update(tree_to(cpu_grads, dev), adamw_init(params), params,
+                                           lr=lr.to(dev))
+        opt_err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(tree_leaves(new_card), tree_leaves(new_cpu)))
+        opt_ok = all(torch.allclose(a.cpu(), b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+                     for a, b in zip(tree_leaves(new_card), tree_leaves(new_cpu)))
+        if not (loss_ok and grads_ok and opt_ok):
+            errors.append(f"17a: card vs CPU beyond tolerance (loss {loss_ok}, gradients "
+                          f"{grads_ok}, AdamW {opt_ok})")
+        log(f"17a h2o-danube-1.8b full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}), 2 layers, float32, "
+            f"TF32 off, {param_bytes(params)} parameter bytes, tokens [2, 32]: loss card "
+            f"{float(loss):.7f} CPU {float(cpu_loss):.7f}; {len(got)} gradient leaves, max abs "
+            f"diff {grad_err:.3g} (largest |g| {gmax:.3g}); one AdamW step, max abs diff "
+            f"{opt_err:.3g}, grad_norm card {float(m_card['grad_norm']):.6f} CPU "
+            f"{float(m_cpu['grad_norm']):.6f}")
+        del model, params, cpu_params, grads, cpu_grads, new_cpu, new_card
+        torch.cuda.empty_cache()
+
+        # (b) all 24 layers, bfloat16, through the trainer, twice
+        steps, batch, seq = 6, 8, 128
+        argv = ["--arch", "h2o_danube_1_8b", "--steps", str(steps), "--batch", str(batch),
+                "--seq", str(seq), "--device", "cuda", "--log-every", "100"]
+        ops.reset_launch_counts()
+        first = train_lib.train(train_lib.parse_args(argv))
+        ctx["train_counts"] = ops.launch_counts()
+        first_params = first.params
+        n_params = sum(x.numel() for x in tree_leaves(first_params))
+        pbytes = param_bytes(first_params)
+        first.opt = None
+        torch.cuda.empty_cache()
+        second = train_lib.train(train_lib.parse_args(argv))
+        same_loss = first.losses == second.losses
+        same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(first_params),
+                                                            tree_leaves(second.params)))
+        del first_params, first.params
+        torch.cuda.empty_cache()
+        # the bound: 6·N FLOPs a token (forward and backward, no recompute) plus
+        # causal attention's pairs, then AdamW's bytes: read p, g, mu, nu and
+        # write p, mu, nu (bfloat16 parameters and gradients, float32 moments)
+        pairs = seq * (seq + 1) // 2
+        flops = 6 * n_params * batch * seq + 3 * 4 * batch * pairs * full.n_heads * full.hd * \
+            full.n_layers
+        opt_bytes = 3 * pbytes + 16 * n_params
+        flop_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+        steps_ms = np.array(first.step_s[1:] + second.step_s[1:]) * 1e3
+        med = float(np.median(steps_ms))
+        peak = max(first.result["peak_memory_bytes"], second.result["peak_memory_bytes"])
+        log(f"17b h2o-danube-1.8b, {full.n_layers} layers, bfloat16, {n_params} parameters "
+            f"({pbytes} bytes), batch {batch} x seq {seq}, {steps} steps through "
+            f"repro_torch.launch.train, twice: losses {[round(x, 6) for x in first.losses]}; "
+            f"walls {first.result['wall_s']:.2f} s and {second.result['wall_s']:.2f} s, first "
+            f"steps {1e3 * first.step_s[0]:.1f} and {1e3 * second.step_s[0]:.1f} ms, median of "
+            f"the others {med:.3f} ms (p10 {np.percentile(steps_ms, 10):.3f}, p90 "
+            f"{np.percentile(steps_ms, 90):.3f}); bound {flop_ms + bytes_ms:.3f} ms (FLOPs "
+            f"{flops / 1e12:.4f} TFLOP at 989 TFLOP/s = {flop_ms:.3f} ms, plus AdamW's "
+            f"{opt_bytes} bytes at 3.35 TB/s = {bytes_ms:.3f} ms), "
+            f"{100 * (flop_ms + bytes_ms) / med:.1f}% of it; peak {peak / 2**30:.2f} GiB; "
+            f"losses equal {same_loss}, final parameters equal bit for bit {same_params}; "
+            f"launches of the hand kernels in the first run {ctx['train_counts']}")
+        model = build_model(full, "cuda")
+        step_fn = train_lib.build_train_step(model, RunConfig(total_steps=steps, warmup_steps=1),
+                                             1)
+        state = {"p": second.params, "o": second.opt}
+        del second
+        toks = torch.as_tensor(rng.integers(0, full.vocab, (batch, seq)), device=dev)
+
+        def one_step():
+            state["p"], state["o"], _, m = step_fn(state["p"], state["o"], {"tokens": toks}, None)
+            float(m["loss"])
+
+        profiled(torch, one_step, "17b", "training step")
+        del state, model
+        torch.cuda.empty_cache()
+        if not (same_loss and same_params):
+            errors.append("17b: two runs' losses or parameters differ")
+        if any(ctx["train_counts"].values()):
+            errors.append(f"17b: a hand kernel launched on the path: {ctx['train_counts']}")
+
+        # (c) 2 bfloat16 layers at full width: checkpoints at 3 and 6, the
+        # step-6 one removed, resumed from 3: equal to the uninterrupted run;
+        # then --compress int8, its wire bytes against the priced
+        ck = os.path.join(ctx["tmp"], "train-ckpt")
+        small = ["--arch", "h2o_danube_1_8b", "--steps", "6", "--batch", "4", "--seq", "64",
+                 "--device", "cuda", "--log-every", "100"]
+        two = dataclasses.replace(full, n_layers=2)
+        whole = train_lib.train(train_lib.parse_args(small + ["--ckpt-dir", ck, "--ckpt-every",
+                                                              "3"]), cfg=two)
+        shutil.rmtree(os.path.join(ck, "step_0000000006"))
+        t0 = time.perf_counter()
+        resumed = train_lib.train(train_lib.parse_args(
+            small + ["--ckpt-dir", ck, "--ckpt-every", "3", "--resume"]), cfg=two)
+        resume_s = time.perf_counter() - t0
+        wire = train_lib.train(train_lib.parse_args(small + ["--compress", "int8"]), cfg=two)
+        same = resumed.losses == whole.losses[3:] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves((resumed.params, resumed.opt)),
+                                              tree_leaves((whole.params, whole.opt))))
+        w = wire.result
+        log(f"17c 2 bfloat16 layers at full width, 6 steps of batch 4 x seq 64: checkpoints "
+            f"at steps 3 and 6, step 6 removed, --resume from 3 ({resume_s:.2f} s): losses "
+            f"{[round(x, 6) for x in resumed.losses]} against "
+            f"{[round(x, 6) for x in whole.losses[3:]]}, "
+            f"parameters and optimizer state equal bit for bit {same}; --compress int8: wire "
+            f"bytes a step {w['wire_bytes_per_step']:.0f}, priced {w['wire_bytes_expected']:.0f}, "
+            f"loss_last {w['loss_last']:.6f} (uncompressed {whole.losses[-1]:.6f})")
+        if not same:
+            errors.append("17c: the resumed run differs from the uninterrupted one")
+        if w["wire_bytes_per_step"] != w["wire_bytes_expected"]:
+            errors.append("17c: wire bytes differ from the priced")
+        if not all(np.isfinite(x) for x in whole.losses + wire.losses):
+            errors.append("17c: a loss is not finite")
+        del whole, resumed, wire
+        torch.cuda.empty_cache()
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("17 training", phase_train)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -2602,6 +2917,8 @@ def run(tmp: str) -> int:
         by_path["hybrid serving (zamba2, phase 15b)"] = ctx["hybrid_counts"][k]
         by_path["xLSTM serving (phase 15c)"] = ctx["xlstm_counts"][k]
         by_path["VLM prefill (paligemma, phase 15d)"] = ctx["vlm_counts"][k]
+        by_path["whisper serving (phase 16b)"] = ctx["whisper_counts"][k]
+        by_path["training (danube, phase 17b)"] = ctx["train_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""repro_torch.dist — the supernode ownership hash and the payload codecs.
+"""repro_torch.dist — the supernode ownership hash, the payload codecs and
+microbatched gradient accumulation.
 
-Port of the summarization part of ``repro/dist/sharding.py`` and of
-``repro/dist/compress.py``. The port keeps no mesh: a flat
-``torch.distributed`` group of P ranks takes the reference's
-``summarize``-mode layout, in which edges are split over every mesh axis.
+Port of the summarization part of ``repro/dist/sharding.py``, of
+``repro/dist/compress.py`` and of ``repro/dist/microbatch.py``. The port
+keeps no mesh: a flat ``torch.distributed`` group of P ranks takes the
+reference's ``summarize``-mode layout, in which edges are split over every
+mesh axis.
 """
 
 from repro_torch.dist.compress import (  # noqa: F401
@@ -15,4 +17,5 @@ from repro_torch.dist.compress import (  # noqa: F401
     init_error_buffers,
     payload_bytes,
 )
+from repro_torch.dist.microbatch import microbatch_grads, value_and_grad  # noqa: F401
 from repro_torch.dist.sharding import OWNER_HASH_MULT, owner_hash  # noqa: F401

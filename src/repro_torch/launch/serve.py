@@ -6,14 +6,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b ...
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_350m ...
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma_3b ...
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_large_v3 ...
 
-Port of ``repro/launch/serve.py`` for every decoder family but whisper's:
-dense (gemma, qwen, danube, deepseek), MoE (granite-moe, moonshot), VLM
-(paligemma, served through its text decode step, as the reference's is),
-hybrid (zamba2) and xLSTM. The scheduler packs requests into fixed slots,
-keeps a decode position per slot, refills a finished slot from the queue
-(continuous batching) and samples greedily; every token, prompt tokens
-included, goes through the model's decode step (``Model.serve_step``).
+Port of ``repro/launch/serve.py`` for every family: dense (gemma, qwen,
+danube, deepseek), MoE (granite-moe, moonshot), VLM (paligemma, served
+through its text decode step, as the reference's is), hybrid (zamba2),
+xLSTM and the encoder-decoder (whisper). As in the reference, whisper is
+served without its encoder: the cache's cross K/V stay zero (the reference
+zeroes them again at every admission), so its tokens equal the reference's;
+the audio-conditioned decode fills the cross K/V from the encoder first
+(``models/whisper.py::fill_cross_cache``). The scheduler packs requests into
+fixed slots, keeps a decode position per slot, refills a finished slot from
+the queue (continuous batching) and samples greedily; every token, prompt
+tokens included, goes through the model's decode step (``Model.serve_step``).
 Empty slots decode token 0, as the reference's do; an MoE decode step is
 dropless, so they take no expert capacity from live slots. A recurrent
 family's state is not protected by position masking: at admission the

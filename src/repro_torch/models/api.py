@@ -1,22 +1,24 @@
-"""Model API of the port: ``build_model(cfg, device)`` for the decoder families.
+"""Model API of the port: ``build_model(cfg, device)`` for every family.
 
-Port of ``repro/models/api.py``'s serving half. :class:`Model` gives
+Port of ``repro/models/api.py``. :class:`Model` gives
 
     init(seed)                        → params (a dict tree of tensors)
     forward(params, batch)            → (logits, aux)           train/prefill
+    loss(params, batch)               → (scalar, metrics)
+    train_step(params, opt, batch, run) → (params, opt, metrics)
     prefill_step(params, batch)       → last-position logits [B, V]
     serve_step(params, batch)         → (logits [B, V], cache)   decode
     init_cache(batch, seq_len)        → decode cache (dict tree)
 
-on the model's device (``"cuda"`` unless the caller asks for the CPU).
-``loss`` and ``train_step`` come with the training slice. The dense and MoE
-families (the MoE block plugs into the transformer block), the VLM family
-(paligemma: a projected image prefix before the tokens, ``batch["img_emb"]``;
-decode is the dense step with no image, as in the reference), the hybrid
-(zamba2's Mamba2 blocks and shared attention) and xLSTM build here; the
-encoder-decoder family raises ``NotImplementedError`` naming the ROADMAP
-Queue 1 entry that ports it. The two recurrent families set the server's
-admission seam, ``clear_slot`` and ``restore_slots`` (see :class:`Model`).
+on the model's device (``"cuda"`` unless the caller asks for the CPU). The
+dense and MoE families (the MoE block plugs into the transformer block),
+the VLM family (paligemma: a projected image prefix before the tokens,
+``batch["img_emb"]``; decode is the dense step with no image, as in the
+reference), the hybrid (zamba2's Mamba2 blocks and shared attention),
+xLSTM, and the encoder-decoder (whisper: ``batch["frames"]`` through the
+encoder, then the teacher-forced decoder; decode attends to the cache's
+cross K/V). The two recurrent families set the server's admission seam,
+``clear_slot`` and ``restore_slots`` (see :class:`Model`).
 :func:`param_shapes` gives each family's tree of leaf shapes.
 """
 
@@ -27,15 +29,13 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models import transformer, xlstm, zamba2
+from repro_torch.dist.microbatch import value_and_grad
+from repro_torch.models import transformer, whisper, xlstm, zamba2
 from repro_torch.models.common import DTYPES, dense_init, tree_map
-
-# ROADMAP Queue 1's entry for each family not ported yet.
-NOT_PORTED = {
-    "encdec": "the encoder-decoder family (models/whisper.py, cross_attention)",
-}
+from repro_torch.models.losses import causal_lm_loss
+from repro_torch.optim import adamw_update, cosine_schedule
 
 
 @dataclasses.dataclass
@@ -43,7 +43,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_fn: Callable  # (generator) -> params
-    forward: Callable  # (params, batch, last_only=False) -> (logits, aux)
+    forward: Callable  # (params, batch, last_only=False, remat=False) -> (logits, aux)
     decode: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, seq_len) -> cache
     # Admission seam for recurrent families: clear_slot(cache, s) zeroes slot
@@ -58,6 +58,26 @@ class Model:
         gen.manual_seed(seed)
         return self.init_fn(gen)
 
+    def loss(self, params, batch, remat: bool = True):
+        logits, aux = self.forward(params, batch, remat=remat)
+        return causal_lm_loss(logits, batch["tokens"], moe_aux=aux.get("moe_aux"),
+                              prefix_len=self.prefix_len)
+
+    def train_step(self, params, opt_state, batch, run: RunConfig | None = None,
+                   remat: bool = True):
+        """One AdamW step on the loss's gradients; the schedule is evaluated
+        at the step being taken (``step + 1``), so the first update moves
+        the parameters."""
+        run = run or RunConfig()
+        (loss, metrics), grads = value_and_grad(
+            lambda p: self.loss(p, batch, remat), params)
+        lr = cosine_schedule(opt_state.step + 1, base_lr=run.lr, warmup=run.warmup_steps,
+                             total=run.total_steps, min_ratio=run.lr_min_ratio)
+        params, opt_state, opt_metrics = adamw_update(
+            grads, opt_state, params, lr=lr, weight_decay=run.weight_decay,
+            grad_clip=run.grad_clip)
+        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
     def serve_step(self, params, batch):
         return self.decode(params, batch)
 
@@ -70,8 +90,9 @@ class Model:
 def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    def fwd(params, batch, last_only=False):
-        return transformer.forward(params, batch["tokens"], cfg, last_only=last_only)
+    def fwd(params, batch, last_only=False, remat=False):
+        return transformer.forward(params, batch["tokens"], cfg, last_only=last_only,
+                                   remat=remat)
 
     def dec(params, batch):
         return transformer.decode_step(params, batch["token"], batch["cache"], batch["pos"],
@@ -95,10 +116,10 @@ def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
         p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
         return p
 
-    def fwd(params, batch, last_only=False):
+    def fwd(params, batch, last_only=False, remat=False):
         prefix = torch.matmul(batch["img_emb"].to(dtype), params["img_proj"])
         return transformer.forward(params, batch["tokens"], cfg, prefix_emb=prefix,
-                                   last_only=last_only)
+                                   last_only=last_only, remat=remat)
 
     model = _dense_family(cfg, dev)
     return dataclasses.replace(model, init_fn=init, forward=fwd, prefix_len=cfg.img_tokens)
@@ -122,8 +143,8 @@ def restore_slots(new, old, s: int):
 
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
                       init_cache) -> Model:
-    def fwd(params, batch, last_only=False):
-        return forward(params, batch["tokens"], cfg, last_only=last_only)
+    def fwd(params, batch, last_only=False, remat=False):
+        return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat)
 
     def dec(params, batch):
         return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
@@ -146,12 +167,29 @@ def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
         xlstm.xlstm_decode_step, lambda b, s: xlstm.init_xlstm_cache(cfg, b, s, dev))
 
 
+def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
+    dtype = DTYPES[cfg.dtype]
+
+    def fwd(params, batch, last_only=False, remat=False):
+        del remat  # as in the reference: whisper's blocks are not rematerialized
+        enc = whisper.encode(params, batch["frames"].to(dtype), cfg)
+        return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only), {}
+
+    def dec(params, batch):
+        return whisper.decode_step(params, batch["token"], batch["cache"], batch["pos"], cfg)
+
+    return Model(cfg=cfg, device=dev,
+                 init_fn=lambda gen: whisper.init_whisper(gen, cfg, dtype, dev), forward=fwd,
+                 decode=dec, init_cache=lambda b, s: whisper.init_cache(cfg, b, s, dtype, dev))
+
+
 _FAMILIES = {
     "dense": _dense_family,
     "moe": _dense_family,  # MoE plugs into the transformer block
     "vlm": _vlm_family,
     "xlstm": _xlstm_family,
     "hybrid": _hybrid_family,
+    "encdec": _encdec_family,
 }
 
 
@@ -161,8 +199,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
         return zamba2.param_shapes(cfg)
     if cfg.family == "xlstm":
         return xlstm.param_shapes(cfg)
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    if cfg.family == "encdec":
+        return whisper.param_shapes(cfg)
     out = transformer.param_shapes(cfg)
     if cfg.family == "vlm":
         out["img_proj"] = (cfg.img_dim, cfg.d_model)
@@ -170,8 +208,4 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP Queue 1 lists "
-            f"{NOT_PORTED.get(cfg.family, cfg.family)}")
     return _FAMILIES[cfg.family](cfg, resolve_device(device))

@@ -1,8 +1,8 @@
 """GQA/MQA/SWA attention with train/prefill and cached-decode paths.
 
-Port of ``repro/models/attention.py`` (self-attention; the encoder-decoder
-``cross_attention`` and ``project_cross_kv`` come with that family; the
-reference's ``_mask`` is called nowhere there and is left out).
+Port of ``repro/models/attention.py``: self-attention, and whisper's
+``cross_attention`` and ``project_cross_kv`` (the reference's ``_mask`` is
+called nowhere there and is left out).
 Layouts are the reference's:
 
     q        [B, S, H, hd]          k/v  [B, T, K, hd]
@@ -114,3 +114,22 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos, *, window=None,
     mask = torch.where(m, 0.0, NEG_INF)[:, None, None, None, :]
     out = mha(q, cache_k, cache_v, mask)
     return _out(p, out), cache_k, cache_v
+
+
+def cross_attention(p, x, kv_cache_k, kv_cache_v):
+    """Encoder-decoder cross attention (whisper): the cache is the projected
+    encoder output; no masking, no RoPE, ``bq`` where the tree has one."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    mask = torch.zeros((x.shape[1], kv_cache_k.shape[1]), dtype=torch.float32, device=x.device)
+    return _out(p, mha(q, kv_cache_k, kv_cache_v, mask))
+
+
+def project_cross_kv(p, enc_out):
+    """The encoder output's cross K/V, [B, T, K, hd] each, with ``bk``/``bv``."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v

@@ -11,11 +11,13 @@ full-width model is never held in float32 whole.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -42,6 +44,15 @@ def param_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(param_bytes(v) for v in tree.values())
     return int(tree.numel() * tree.element_size())
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of a block): its activations are dropped
+    after the forward and recomputed in the backward."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +136,18 @@ def rope(x, positions, theta: float = 10_000.0):
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_pos(seq_len: int, d: int, device="cuda") -> torch.Tensor:
+    """[seq_len, d] sin/cos table, built in numpy float64 and cast to float32
+    as the reference builds it (a float32 ``torch.sin`` differs in the last
+    bits). Built once a shape and device; callers must not write to it."""
+    pos = np.arange(seq_len)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------

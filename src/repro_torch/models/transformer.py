@@ -11,12 +11,14 @@ MoE model's forward returns the mean of its layers' load-balance losses as
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (apply_mlp, apply_norm, embed_init, init_mlp, init_norm,
-                                       norm_shapes)
+                                       norm_shapes, remat_call)
 
 
 def init_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
@@ -113,17 +115,20 @@ def unembed(params, h, cfg):
     return torch.matmul(h, table.t()).float()  # the product in the working type, then f32
 
 
-def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False):
+def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False,
+            remat: bool = False):
     """Token logits for train/prefill; ``last_only`` keeps the last position.
     ``prefix_emb`` (the VLM's projected image): embeddings put before the
     token embeddings in sequence order, cast to their type. The aux:
-    ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``."""
+    ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``.
+    ``remat``: each block under ``torch.utils.checkpoint``."""
     h = embed_tokens(params, tokens, cfg)
     if prefix_emb is not None:
         h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
     aux_tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        h, aux = apply_block(params[f"layer_{i}"], h, cfg, window=_window(cfg, i))
+        blk = functools.partial(apply_block, cfg=cfg, window=_window(cfg, i))
+        h, aux = remat_call(blk, remat, params[f"layer_{i}"], h)
         if "moe_aux" in aux:
             aux_tot = aux_tot + aux["moe_aux"]
     h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)

@@ -1,0 +1,163 @@
+"""Whisper-large-v3 backbone: 32-layer encoder + 32-layer decoder, d=1280.
+
+Port of ``repro/models/whisper.py``. The conv/mel frontend is a stub, as in
+the reference: the encoder takes precomputed frame embeddings [B, enc_len,
+d]. Pre-LN LayerNorm blocks, non-gated GELU MLPs (``jax.nn.gelu``'s tanh
+form in float32), sinusoidal positions, a bias on every attention. The
+decoder's head is tied to its embedding.
+
+Decode keeps, per decoder layer, a self-attention KV cache of the serving
+length (written in place at each slot's position) and a cross-attention
+K/V of ``enc_len`` positions. ``init_cache`` leaves the cross K/V at zero;
+the conditioned path fills it from ``project_cross_kv(encode(frames))``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
+                                       norm_shapes, sinusoidal_pos)
+
+
+def init_plain_mlp(gen, d, f, dtype=torch.bfloat16, device="cuda"):
+    return {"wi": dense_init(gen, (d, f), 0, dtype, device),
+            "wo": dense_init(gen, (f, d), 0, dtype, device)}
+
+
+def apply_plain_mlp(p, x):
+    h = torch.matmul(x, p["wi"])
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return torch.matmul(h, p["wo"])
+
+
+def init_enc_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    d = cfg.d_model
+    return {
+        "ln1": init_norm(d, "layernorm", device),
+        "attn": attn.init_attention(gen, cfg, dtype=dtype, bias=True, device=device),
+        "ln2": init_norm(d, "layernorm", device),
+        "mlp": init_plain_mlp(gen, d, cfg.d_ff, dtype, device),
+    }
+
+
+def init_dec_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    d = cfg.d_model
+    return {
+        "ln1": init_norm(d, "layernorm", device),
+        "self_attn": attn.init_attention(gen, cfg, dtype=dtype, bias=True, device=device),
+        "ln2": init_norm(d, "layernorm", device),
+        "cross_attn": attn.init_attention(gen, cfg, dtype=dtype, bias=True, device=device),
+        "ln3": init_norm(d, "layernorm", device),
+        "mlp": init_plain_mlp(gen, d, cfg.d_ff, dtype, device),
+    }
+
+
+def init_whisper(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+    p = {
+        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
+        "ln_enc": init_norm(cfg.d_model, "layernorm", device),
+        "ln_dec": init_norm(cfg.d_model, "layernorm", device),
+    }
+    for i in range(cfg.enc_layers):
+        p[f"enc_{i}"] = init_enc_block(gen, cfg, dtype, device)
+    for i in range(cfg.n_layers):
+        p[f"dec_{i}"] = init_dec_block(gen, cfg, dtype, device)
+    return p
+
+
+def param_shapes(cfg) -> dict:
+    """The shape of every leaf :func:`init_whisper` makes."""
+    d, h, k, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    norm = norm_shapes(d, "layernorm")
+    att = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d),
+           "bq": (h, hd), "bk": (k, hd), "bv": (k, hd)}
+    mlp = {"wi": (d, f), "wo": (f, d)}
+    out = {"embed": (cfg.vocab, d), "ln_enc": norm, "ln_dec": norm}
+    out.update({f"enc_{i}": {"ln1": norm, "attn": att, "ln2": norm, "mlp": mlp}
+                for i in range(cfg.enc_layers)})
+    out.update({f"dec_{i}": {"ln1": norm, "self_attn": att, "ln2": norm, "cross_attn": att,
+                             "ln3": norm, "mlp": mlp} for i in range(cfg.n_layers)})
+    return out
+
+
+def _enc_block(p, h, cfg):
+    a = apply_norm(p["ln1"], h, "layernorm")
+    h = h + attn.attention(p["attn"], a, cfg, causal=False, use_rope=False)
+    return h + apply_plain_mlp(p["mlp"], apply_norm(p["ln2"], h, "layernorm"))
+
+
+def encode(params, frames, cfg):
+    """frames: [B, enc_len, d] (the stub frontend's output)."""
+    h = frames + sinusoidal_pos(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+    for i in range(cfg.enc_layers):
+        h = _enc_block(params[f"enc_{i}"], h, cfg)
+    return apply_norm(params["ln_enc"], h, "layernorm")
+
+
+def _dec_block(p, h, enc_out, cfg):
+    a = apply_norm(p["ln1"], h, "layernorm")
+    h = h + attn.attention(p["self_attn"], a, cfg, causal=True, use_rope=False)
+    a = apply_norm(p["ln2"], h, "layernorm")
+    ck, cv = attn.project_cross_kv(p["cross_attn"], enc_out)
+    h = h + attn.cross_attention(p["cross_attn"], a, ck, cv)
+    return h + apply_plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
+
+
+def _logits(params, h):
+    h = apply_norm(params["ln_dec"], h, "layernorm")
+    return torch.matmul(h, params["embed"].t()).float()
+
+
+def decode_train(params, tokens, enc_out, cfg, *, last_only: bool = False):
+    """Teacher-forced decoder over the whole token sequence (train/prefill);
+    each layer projects its cross K/V from ``enc_out``."""
+    h = params["embed"][tokens]
+    h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, h.device).to(h.dtype)
+    for i in range(cfg.n_layers):
+        h = _dec_block(params[f"dec_{i}"], h, enc_out, cfg)
+    if last_only:
+        h = h[:, -1:]
+    return _logits(params, h)
+
+
+def decode_step(params, token, cache, pos, cfg):
+    """One-token decode. cache: per layer the self ``k``/``v`` (written in
+    place) and the cross ``xk``/``xv``; pos: scalar or [B]."""
+    b = token.shape[0]
+    h = params["embed"][token[:, None]]
+    pos_emb = sinusoidal_pos(cache["dec_0"]["k"].shape[1], cfg.d_model, h.device)
+    posv = torch.as_tensor(pos, dtype=torch.int64, device=h.device).expand(b)
+    h = h + pos_emb[posv][:, None].to(h.dtype)
+    new_cache = {}
+    for i in range(cfg.n_layers):
+        p, c = params[f"dec_{i}"], cache[f"dec_{i}"]
+        a = apply_norm(p["ln1"], h, "layernorm")
+        o, nk, nv = attn.attention_decode(p["self_attn"], a, cfg, c["k"], c["v"], pos,
+                                          use_rope=False)
+        h = h + o
+        a = apply_norm(p["ln2"], h, "layernorm")
+        h = h + attn.cross_attention(p["cross_attn"], a, c["xk"], c["xv"])
+        h = h + apply_plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
+        new_cache[f"dec_{i}"] = {"k": nk, "v": nv, "xk": c["xk"], "xv": c["xv"]}
+    return _logits(params, h)[:, 0], new_cache
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
+    def zeros(t):
+        return torch.zeros((batch, t, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device)
+
+    return {f"dec_{i}": {"k": zeros(seq_len), "v": zeros(seq_len), "xk": zeros(cfg.enc_len),
+                         "xv": zeros(cfg.enc_len)} for i in range(cfg.n_layers)}
+
+
+def fill_cross_cache(params, cache, enc_out, cfg):
+    """Write every decoder layer's ``project_cross_kv(enc_out)`` into the
+    cache's ``xk``/``xv`` in place (the audio-conditioned decode)."""
+    for i in range(cfg.n_layers):
+        k, v = attn.project_cross_kv(params[f"dec_{i}"]["cross_attn"], enc_out)
+        cache[f"dec_{i}"]["xk"].copy_(k)
+        cache[f"dec_{i}"]["xv"].copy_(v)
+    return cache

@@ -13,6 +13,7 @@ gelu). Both ``m`` states start at -30.0 in :func:`init_xlstm_cache`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
-                                       normal_init, norm_shapes)
+                                       normal_init, norm_shapes, remat_call)
 
 M_INIT = -30.0
 
@@ -308,11 +309,12 @@ def _logits(params, h, cfg):
     return torch.matmul(h, params["embed"].t()).float()
 
 
-def xlstm_forward(params, tokens, cfg, *, last_only: bool = False):
+def xlstm_forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False):
+    """``remat``: each block under ``torch.utils.checkpoint``."""
     h = params["embed"][tokens]
     for i in range(cfg.n_layers):
-        fn = mlstm_forward if is_mlstm(i) else slstm_forward
-        h = fn(params[f"layer_{i}"], h, cfg)
+        fn = functools.partial(mlstm_forward if is_mlstm(i) else slstm_forward, cfg=cfg)
+        h = remat_call(fn, remat, params[f"layer_{i}"], h)
     if last_only:
         h = h[:, -1:]
     return _logits(params, h, cfg), {}

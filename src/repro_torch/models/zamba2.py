@@ -10,10 +10,12 @@ scale) and the head is tied to it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models import mamba2, transformer
-from repro_torch.models.common import apply_norm, embed_init, init_norm, norm_shapes
+from repro_torch.models.common import apply_norm, embed_init, init_norm, norm_shapes, remat_call
 
 
 def attn_sites(cfg) -> list[int]:
@@ -45,13 +47,17 @@ def _logits(params, h, cfg):
     return torch.matmul(h, params["embed"].t()).float()
 
 
-def forward(params, tokens, cfg, *, last_only: bool = False):
+def forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False):
+    """``remat``: each Mamba2 block and each shared-block site under
+    ``torch.utils.checkpoint``."""
     h = params["embed"][tokens]
     sites = set(attn_sites(cfg))
+    ssm = functools.partial(mamba2.ssd_forward, cfg=cfg)
+    blk = functools.partial(transformer.apply_block, cfg=cfg)
     for i in range(cfg.n_layers):
-        h = mamba2.ssd_forward(params[f"ssm_{i}"], h, cfg)
+        h = remat_call(ssm, remat, params[f"ssm_{i}"], h)
         if i in sites:
-            h, _ = transformer.apply_block(params["shared"], h, cfg)
+            h, _ = remat_call(blk, remat, params["shared"], h)
     if last_only:
         h = h[:, -1:]
     return _logits(params, h, cfg), {}

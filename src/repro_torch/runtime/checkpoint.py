@@ -8,9 +8,10 @@ other:
     file per leaf, named by the leaf's path with ``/`` written as ``__``,
     and ``manifest.json`` with ``step``, ``extra`` (the caller's JSON
     payload) and ``leaves`` (``{path: {file, dtype, shape}}``).
-  * **Trees**: a dataclass (such as ``SummaryState``), a dict, a list or a
-    tuple, nested in any way; its leaves are torch tensors, numpy arrays or
-    scalars, or Python numbers. A dataclass field's path is its name, a
+  * **Trees**: a dataclass (such as ``SummaryState``), a dict, a list, a
+    tuple or a ``NamedTuple`` (such as ``AdamWState``), nested in any way;
+    its leaves are torch tensors, numpy arrays or scalars, or Python
+    numbers. A dataclass field's path is its name, a
     dict entry's its key, a sequence item's its index. (The reference's
     dataclasses flatten by position, so its ``SummaryState`` leaves are
     ``0``, ``1``, ...: a state tree is not shared between the packages,
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 COMMIT = "COMMIT"
+BF16_BYTES = np.dtype("V2")  # a bfloat16 leaf on disk: its raw 2-byte patterns
 
 
 def _children(tree) -> list[tuple[str, Any]] | None:
@@ -82,20 +84,31 @@ def _rebuild(template, leaves: dict[str, Any], prefix: tuple[str, ...] = ()):
     if isinstance(template, dict):
         return {k: new[str(k)] for k in template}
     if isinstance(template, (list, tuple)):
-        return type(template)(new[str(i)] for i in range(len(template)))
+        values = [new[str(i)] for i in range(len(template))]
+        # a NamedTuple (such as AdamWState) takes its fields as arguments
+        return type(template)(*values) if hasattr(template, "_fields") else type(template)(values)
     return dataclasses.replace(template, **new)
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory (one ``.cpu()`` copy for a tensor)."""
+    """A copy of ``leaf`` in host memory (one ``.cpu()`` copy for a tensor).
+    numpy has no bfloat16: a bfloat16 tensor becomes its 2-byte patterns as
+    ``V2``, the form in which ``np.save`` writes the reference's bfloat16
+    arrays."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_BYTES)
+        return t.numpy()
     return np.array(leaf, copy=True)
 
 
 def _like(arr: np.ndarray, leaf, device) -> Any:
     """``arr`` as the kind, dtype and device of the template ``leaf``."""
     if isinstance(leaf, torch.Tensor):
+        if arr.dtype == BF16_BYTES:
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+                device=device or leaf.device, dtype=leaf.dtype)
         return torch.from_numpy(arr).to(device=device or leaf.device, dtype=leaf.dtype)
     if isinstance(leaf, (np.ndarray, np.generic)):
         return arr.astype(leaf.dtype)
@@ -169,8 +182,8 @@ class CheckpointManager:
         for key, arr in snap.items():
             fn = key.replace("/", "__") + ".npy"
             np.save(os.path.join(tmp, fn), arr)
-            manifest["leaves"][key] = {"file": fn, "dtype": str(arr.dtype),
-                                       "shape": list(arr.shape)}
+            dtype = "bfloat16" if arr.dtype == BF16_BYTES else str(arr.dtype)
+            manifest["leaves"][key] = {"file": fn, "dtype": dtype, "shape": list(arr.shape)}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()

@@ -63,6 +63,36 @@ def test_checkpoint_roundtrip(tmp_path, how):
     _assert_tree_equal(got, tree)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_params_and_adamw_state_roundtrip(tmp_path, dtype):
+    """A trainer's ``(params, AdamWState)``: the NamedTuple comes back as
+    itself (rebuilt from its fields), every leaf in its type, bit for bit; a
+    bfloat16 leaf is written as its 2-byte patterns, as the reference's
+    ``np.save`` writes one."""
+    from repro_torch.optim import AdamWState, adamw_init
+
+    rng = np.random.default_rng(1)
+    params = {"embed": torch.as_tensor(rng.standard_normal((6, 4))).to(dtype),
+              "ln": {"scale": torch.as_tensor(rng.standard_normal(4), dtype=torch.float32)}}
+    opt = adamw_init(params)
+    opt = AdamWState(step=opt.step + 3, mu={k: v for k, v in opt.mu.items()},
+                     nu=opt.nu)
+    opt.mu["embed"].normal_(generator=torch.Generator().manual_seed(2))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(3, (params, opt))
+    mgr.wait()
+    template = ({"embed": torch.zeros_like(params["embed"]),
+                 "ln": {"scale": torch.zeros(4)}}, adamw_init(params))
+    (got_p, got_opt), step, _ = mgr.restore(template)
+    assert step == 3 and type(got_opt) is AdamWState
+    assert got_opt.step.dtype == torch.int32 and int(got_opt.step) == 3
+    assert got_p["embed"].dtype == dtype and got_opt.mu["embed"].dtype == torch.float32
+    for a, b in ((got_p["embed"], params["embed"]), (got_p["ln"]["scale"], params["ln"]["scale"]),
+                 (got_opt.mu["embed"], opt.mu["embed"]), (got_opt.nu["ln"]["scale"],
+                                                          opt.nu["ln"]["scale"])):
+        assert torch.equal(a, b)
+
+
 def test_checkpoint_keep_n_and_async(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2)
     for s in (1, 2, 3, 4):
@@ -169,6 +199,22 @@ def test_reference_directory_restores_through_the_port(tmp_path, template):
             "b": torch.as_tensor(got["nested"]["b"]),
             "step": torch.as_tensor(got["nested"]["step"])}}
     _assert_tree_equal(got, tree)
+
+
+def test_a_reference_bfloat16_leaf_restores_through_the_port(tmp_path):
+    """The reference's ``np.save`` writes a bfloat16 leaf as its 2-byte
+    patterns; the port reads them back into a bfloat16 tensor, and writes its
+    own the same way (the same 2-byte patterns on disk)."""
+    x = np.random.default_rng(5).standard_normal((3, 5)).astype(np.float32)
+    RefCheckpointManager(str(tmp_path / "ref")).save(2, {"w": jnp.asarray(x, jnp.bfloat16)})
+    like = {"w": torch.zeros((3, 5), dtype=torch.bfloat16)}
+    got, _, _ = CheckpointManager(str(tmp_path / "ref")).restore(like)
+    want = torch.as_tensor(x).to(torch.bfloat16)
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], want)
+    CheckpointManager(str(tmp_path / "port")).save(2, {"w": want})
+    files = [os.path.join(tmp_path, side, "step_0000000002", "w.npy") for side in ("ref", "port")]
+    ref_bits, port_bits = (np.load(f).view(np.int16) for f in files)
+    assert np.array_equal(ref_bits, port_bits)
 
 
 def test_port_directory_restores_through_the_reference(tmp_path):

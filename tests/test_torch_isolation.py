@@ -58,7 +58,11 @@ def test_no_module_imports_jax_or_the_reference():
               "repro_torch.models.attention", "repro_torch.models.transformer",
               "repro_torch.models.moe", "repro_torch.models.mamba2",
               "repro_torch.models.zamba2", "repro_torch.models.xlstm",
-              "repro_torch.models.api", "repro_torch.launch.serve"):
+              "repro_torch.models.api", "repro_torch.launch.serve",
+              "repro_torch.models.whisper", "repro_torch.models.losses",
+              "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.dist.microbatch",
+              "repro_torch.data", "repro_torch.data.tokens", "repro_torch.data.loader",
+              "repro_torch.launch.train"):
         assert m in res["modules"]
 
 
@@ -175,6 +179,38 @@ def test_baselines_and_lm_serving_run_without_jax_or_the_reference():
     assert all(2 <= n <= 13 for n in res["sizes"])
 
 
+_TRAIN_AND_WHISPER = r"""
+import json, sys
+from repro_torch.launch import serve, train
+res = train.main(["--arch", "h2o_danube_1_8b", "--smoke", "--device", "cpu", "--steps", "2",
+                  "--batch", "2", "--seq", "8", "--accum", "2", "--compress", "int8"])
+srv = serve.main(["--arch", "whisper_large_v3", "--smoke", "--device", "cpu", "--requests", "2",
+                  "--slots", "2", "--prompt-len", "3", "--gen-len", "2", "--max-len", "16"])
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "repro.")) or k == "repro")
+print(json.dumps({"steps": res["steps"], "tokens": srv["tokens"], "bad": bad}))
+"""
+
+
+def test_training_and_whisper_serving_run_without_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_AND_WHISPER], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"steps": 2, "tokens": 4, "bad": []}
+
+
+def test_trainer_and_loader_without_device_refuse_the_cpu():
+    _no_cuda()
+    from repro_torch.data import Loader
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "h2o_danube_1_8b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Loader(lambda i: np.zeros(2, np.int32))
+
+
 def test_lm_server_and_baselines_without_device_refuse_the_cpu():
     _no_cuda()
     from repro_torch.baselines import evaluate_partition, summarize_s2l
@@ -186,7 +222,7 @@ def test_lm_server_and_baselines_without_device_refuse_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--requests", "1", "--slots", "1"])
     for arch in ("qwen2_5_14b", "granite_moe_3b_a800m", "zamba2_7b", "xlstm_350m",
-                 "paligemma_3b"):
+                 "paligemma_3b", "whisper_large_v3"):
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(get_smoke_config(arch))
     with pytest.raises(RuntimeError, match="CUDA"):

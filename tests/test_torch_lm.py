@@ -2,10 +2,10 @@
 reference's (``repro.models``) on the CPU, on the reference's own weights
 carried across by ``lm_params_from_numpy``: forward and decode-step logits,
 greedy tokens, the port's decode-vs-forward consistency, bfloat16 cases, the
-config registry, the full-width trees counted without allocating, and the
-family that waits for a later slice. The hybrid, xLSTM and VLM families have
-their own files (``test_torch_hybrid.py``, ``_xlstm.py``, ``_vlm.py``), which
-take this file's helpers."""
+config registry and the full-width trees counted without allocating. The
+hybrid, xLSTM, VLM and encoder-decoder families have their own files
+(``test_torch_hybrid.py``, ``_xlstm.py``, ``_vlm.py``, ``_whisper.py``), which
+take this file's helpers; training has ``test_torch_train.py``."""
 
 from __future__ import annotations
 
@@ -214,13 +214,6 @@ def test_ssumm_paper_workloads_equal_the_reference():
         assert (w.dataset, w.k_frac, w.dry_run_only, w.v, w.e) == \
             (r.dataset, r.k_frac, r.dry_run_only, r.v, r.e)
         assert dataclasses.asdict(w.cfg) == dataclasses.asdict(r.cfg)
-
-
-@pytest.mark.parametrize("arch", ["whisper_large_v3"])
-def test_families_not_ported_yet_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        build_model(cfg, "cpu")
 
 
 def test_full_width_shapes_and_bytes():
