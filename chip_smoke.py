@@ -100,8 +100,8 @@ card and CPU runs. Phases, one line each or a few:
      MoE is plain jnp): (a) moonshot-v1-16b-a3b at full width, 2 layers,
      float32, TF32 off, capacity factor 16: forward on the card against the
      CPU, decode against forward (rtol and atol 1e-3), no record dropped on
-     either side; (b) granite-moe-3b-a800m, all 32 bfloat16 layers, 48 padded
-     experts, initialised on the card from a seed, 8 requests through
+     either side; (b) granite-moe-3b-a800m, 16 of its 32 bfloat16 layers (the
+     depth cut for the time limit), 48 padded experts, initialised on the card from a seed, 8 requests through
      ``BatchServer`` as in 13b, twice, the same tokens; init time, median
      decode step against its bytes bound and against the bytes of the experts
      a steady step routes to, tokens/s, peak memory, three profiled steps,
@@ -152,15 +152,32 @@ card and CPU runs. Phases, one line each or a few:
      layers at full width, checkpoints at steps 3 and 6, the step-6 one
      removed and the run resumed from 3: equal bit for bit to the
      uninterrupted run; ``--compress int8``: the wire bytes equal to the
-     priced.
+     priced;
+  18. multi-rank training (no hand kernel on it: the reference's trainer,
+     MoE dispatch and collectives are plain jnp and lax collectives), in an
+     NCCL group of one (one card holds one NCCL rank): (a)
+     ``repro_torch.launch.train`` at 17b's settings, equal to 17b's first run
+     bit for bit, and ``--compress int8`` on 2 layers, its wire bytes 1 x the
+     priced; (b) granite-moe-3b-a800m at full width: 2 float32 layers at
+     capacity factor 1.25 (records drop), the loss and every gradient leaf
+     on the card against the CPU; 8 of its 32 bfloat16 layers (the depth
+     cut for the time limit) through the trainer at batch 8 x 128, 4 steps,
+     twice, bit for bit: the drop fraction by layer, the median step against
+     the FLOP + AdamW-bytes bound, peak memory; (c) granite's MoE block at
+     full width, float32, x [8, 128, 1536]: ``apply_moe_a2a`` with EP = 4 in
+     this process and over ``all_to_all_single`` in the group of one, against
+     ``apply_moe_gspmd`` at capacity factor 8 (no drop; forward and the
+     gradients of sum(y^2), rtol 2e-4, atol 2e-5), at 1.25 the drop
+     fractions and two runs bit-identical, each path's forward + backward
+     device time.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c, 15d, 16b and 17b), and as the last line
-``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result
-line, when CUDA is unavailable, when the package is missing, or when any
-phase fails. Imports nothing of the JAX package.
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b and 18c), and as the
+last line ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no
+result line, when CUDA is unavailable, when the package is missing, or when
+any phase fails. Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -498,8 +515,8 @@ class MoeRecorder:
     def __enter__(self):
         self.orig = orig = self.moe_lib.apply_moe
 
-        def recorded(p, x, cfg, capacity_factor=None):
-            y, aux = orig(p, x, cfg, capacity_factor)
+        def recorded(p, x, cfg, capacity_factor=None, **groups):
+            y, aux = orig(p, x, cfg, capacity_factor, **groups)
             self.calls.append({"p": p, "x": x, "aux": aux})
             return y, aux
 
@@ -2339,24 +2356,26 @@ def run(tmp: str) -> int:
         del model, params, cpu_params, fwd, want, got, cache, rec_card, rec_cpu, rec_dec
         torch.cuda.empty_cache()
 
-        # (b) service: granite-moe-3b-a800m, 32 bfloat16 layers, through BatchServer
+        # (b) service: granite-moe-3b-a800m, 16 of its 32 bfloat16 layers (the
+        # depth cut for the time limit), through BatchServer
         full = get_config("granite_moe_3b_a800m")
+        served = dataclasses.replace(full, n_layers=16)
         slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model = build_model(full, "cuda")
+        model = build_model(served, "cuda")
         params = model.init(0)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         pbytes = param_bytes(params)
-        kv = kv_cache_bytes(full, slots, max_len)
+        kv = kv_cache_bytes(served, slots, max_len)
         bound_ms = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, full.vocab, prompt_len).astype(np.int32) for _ in range(nreq)]
 
         ops.reset_launch_counts()
-        runs = serve_twice(full, params, prompts, slots=slots, max_len=max_len,
+        runs = serve_twice(served, params, prompts, slots=slots, max_len=max_len,
                            gen_len=gen_len)
         ctx["moe_counts"] = ops.launch_counts()
         (s0, out0, _), (s1, out1, _) = runs
@@ -2376,10 +2395,11 @@ def run(tmp: str) -> int:
         used = [int(torch.unique(moe_lib.route(c["p"]["router"], c["x"].reshape(-1, d),
                                                full.moe.num_experts, full.moe.top_k)[2]).numel())
                 for c in rec.calls]
-        routed = pbytes - full.n_layers * e_pad * expert_bytes + sum(used) * expert_bytes
+        routed = pbytes - served.n_layers * e_pad * expert_bytes + sum(used) * expert_bytes
         routed_ms = (routed + kv) / HBM_BYTES_PER_S * 1e3
-        log(f"14b granite-moe-3b-a800m, {full.n_layers} layers, bfloat16 ({e_pad} padded experts, "
-            f"float32 routers and norms): {pbytes} parameter bytes initialised on the card in "
+        log(f"14b granite-moe-3b-a800m, {served.n_layers} of {full.n_layers} layers, bfloat16 "
+            f"({e_pad} padded experts, float32 routers and norms): {pbytes} parameter bytes "
+            f"initialised on the card in "
             f"{init_s:.2f} s; {nreq} requests, {slots} slots, prompt {prompt_len}, gen {gen_len}, "
             f"max_len {max_len}: {line}; "
             f"peak {peak / 2**30:.2f} GiB; step bound {bound_ms:.3f} ms (parameters {pbytes} + "
@@ -2816,6 +2836,8 @@ def run(tmp: str) -> int:
         same_loss = first.losses == second.losses
         same_params = all(torch.equal(a, b) for a, b in zip(tree_leaves(first_params),
                                                             tree_leaves(second.params)))
+        # phase 18a holds the trainer in an NCCL world of one against this run
+        ctx["train_17b"] = {"argv": argv, "losses": first.losses, "params": first_params}
         del first_params, first.params
         torch.cuda.empty_cache()
         # the bound: 6·N FLOPs a token (forward and backward, no recompute) plus
@@ -2900,6 +2922,249 @@ def run(tmp: str) -> int:
 
     smoke.phase("17 training", phase_train)
 
+    # ---- 18. multi-rank training --------------------------------------------
+    def phase_train_dp():
+        import torch.distributed as tdist
+        from repro_torch.configs import RunConfig, get_config
+        from repro_torch.core.query_engine import RankSet
+        from repro_torch.data import SyntheticTokens, TokenDatasetConfig
+        from repro_torch.dist.compress import tree_leaves
+        from repro_torch.dist.microbatch import value_and_grad
+        from repro_torch.launch import summarize as launch
+        from repro_torch.launch import train as train_lib
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.models.api import build_model
+        from repro_torch.models.common import param_bytes, tree_to
+        card = nvidia_smi("name,power.limit")
+        errors = []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        if "train_17b" not in ctx:
+            raise AssertionError("phase 17b's run is not at hand")
+        ref = ctx.pop("train_17b")
+        launch.init_distributed(dev)  # NCCL, a world of one
+        try:
+            # (a) danube's 24 bfloat16 layers through the trainer in the group,
+            # at 17b's settings: 17b's first run bit for bit
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            run = train_lib.train(train_lib.parse_args(ref["argv"]))
+            wall_a = time.perf_counter() - t0
+            ctx["dp_counts"] = ops.launch_counts()
+            same_loss = run.losses == ref["losses"]
+            same_params = all(torch.equal(a, b) for a, b in
+                              zip(tree_leaves(run.params), tree_leaves(ref["params"])))
+            world = run.result["world"]
+            del ref, run
+            torch.cuda.empty_cache()
+            two = dataclasses.replace(get_config("h2o_danube_1_8b"), n_layers=2)
+            small = ["--arch", "h2o_danube_1_8b", "--steps", "3", "--batch", "4", "--seq",
+                     "64", "--device", "cuda", "--log-every", "100", "--compress", "int8"]
+            w = train_lib.train(train_lib.parse_args(small), cfg=two).result
+            log(f"[{card}] 18a h2o-danube-1.8b, 24 bfloat16 layers, through "
+                f"repro_torch.launch.train in an NCCL group of {world} "
+                f"({tdist.get_backend()}), phase 17b's settings: {wall_a:.2f} s; losses equal "
+                f"to 17b's first run {same_loss}, final parameters bit for bit {same_params}; "
+                f"--compress int8 on 2 layers: wire bytes a step "
+                f"{w['wire_bytes_per_step']:.0f}, 1 x payload_bytes "
+                f"{w['wire_bytes_expected']:.0f}, world {w['world']}; launches of the hand "
+                f"kernels {ctx['dp_counts']}")
+            if world != 1 or not (same_loss and same_params):
+                errors.append(f"18a: the trainer in a group of {world} differs from 17b "
+                              f"(losses {same_loss}, parameters {same_params})")
+            if w["world"] != 1 or w["wire_bytes_per_step"] != w["wire_bytes_expected"]:
+                errors.append("18a: int8 wire bytes differ from 1 x payload_bytes")
+
+            # (b) granite-moe-3b-a800m at full width: 2 float32 layers at
+            # capacity factor 1.25 (records drop), loss and gradients on the
+            # card against the CPU; then 8 of its 32 bfloat16 layers through
+            # the trainer, twice
+            full = get_config("granite_moe_3b_a800m")
+            cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)),
+                                     device=dev)
+            model = build_model(cfg, "cuda")
+            params = model.init(0)
+            with MoeRecorder(moe_lib) as rec_card:
+                (loss, _), grads = value_and_grad(
+                    lambda p: model.loss(p, {"tokens": tokens}), params)
+            cpu_model, cpu_params = build_model(cfg, "cpu"), tree_to(params, "cpu")
+            with MoeRecorder(moe_lib) as rec_cpu:
+                (cpu_loss, _), cpu_grads = value_and_grad(
+                    lambda p: cpu_model.loss(p, {"tokens": tokens.cpu()}), cpu_params)
+            got, want = tree_leaves(grads), tree_leaves(cpu_grads)
+            gmax = max(float(x.abs().max()) for x in want)
+            grad_err = max(float((g.cpu() - x).abs().max()) for g, x in zip(got, want))
+            grads_ok = all(torch.allclose(g.cpu(), x, rtol=1e-3, atol=1e-4 * gmax)
+                           for g, x in zip(got, want))
+            loss_ok = abs(float(loss) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+            drops = (rec_card.drop_fracs(), rec_cpu.drop_fracs())
+            log(f"18b granite-moe-3b-a800m full width (d_model {cfg.d_model}, "
+                f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, padded "
+                f"{params['layer_0']['moe']['router'].shape[-1]}), 2 layers, float32, TF32 "
+                f"off, capacity factor {cfg.moe.capacity_factor}, tokens [2, 32]: loss card "
+                f"{float(loss):.7f} CPU {float(cpu_loss):.7f}; {len(got)} gradient leaves, "
+                f"max abs diff {grad_err:.3g} (largest |g| {gmax:.3g}); drop fractions card "
+                f"{drops[0]}, CPU {drops[1]} by layer")
+            if not (loss_ok and grads_ok):
+                errors.append(f"18b: card vs CPU beyond tolerance (loss {loss_ok}, gradients "
+                              f"{grads_ok})")
+            if drops[0] != drops[1] or not any(f > 0 for f in drops[0]):
+                errors.append(f"18b: drop fractions {drops}: not equal, or none dropped")
+            del model, params, cpu_params, grads, cpu_grads, rec_card, rec_cpu
+            torch.cuda.empty_cache()
+
+            steps, batch, seq = 4, 8, 128
+            eight = dataclasses.replace(full, n_layers=8)
+            argv = ["--arch", "granite_moe_3b_a800m", "--steps", str(steps), "--batch",
+                    str(batch), "--seq", str(seq), "--device", "cuda", "--log-every", "100"]
+            ops.reset_launch_counts()
+            first = train_lib.train(train_lib.parse_args(argv), cfg=eight)
+            ctx["moe_train_counts"] = ops.launch_counts()
+            first_params = first.params
+            first.opt = first.params = None
+            torch.cuda.empty_cache()
+            second = train_lib.train(train_lib.parse_args(argv), cfg=eight)
+            same_loss = first.losses == second.losses
+            same_params = all(torch.equal(a, b) for a, b in
+                              zip(tree_leaves(first_params), tree_leaves(second.params)))
+            del first_params
+            n_params = sum(x.numel() for x in tree_leaves(second.params))
+            pbytes = param_bytes(second.params)
+            e_pad = full.moe.experts_padded(moe_lib.EP)
+            d, f, k = full.d_model, full.d_ff, full.moe.top_k
+            # the bound: 6 FLOPs a routed parameter a token (k of the experts),
+            # causal attention's pairs, and AdamW's bytes over every parameter
+            n_active = n_params - eight.n_layers * (e_pad - k) * 3 * d * f
+            pairs = seq * (seq + 1) // 2
+            flops = 6 * n_active * batch * seq + 3 * 4 * batch * pairs * full.n_heads * \
+                full.hd * eight.n_layers
+            opt_bytes = 3 * pbytes + 16 * n_params
+            flop_ms = flops / BF16_FLOPS * 1e3
+            bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+            steps_ms = np.array(first.step_s[1:] + second.step_s[1:]) * 1e3
+            med = float(np.median(steps_ms))
+            peak = max(first.result["peak_memory_bytes"], second.result["peak_memory_bytes"])
+            ds = SyntheticTokens(TokenDatasetConfig(vocab=full.vocab, seq_len=seq,
+                                                    global_batch=batch, seed=0))
+            toks = torch.as_tensor(ds.batch(0).astype(np.int64), device=dev)
+            model = build_model(eight, "cuda")
+            with torch.no_grad(), MoeRecorder(moe_lib) as rec:
+                model.forward(second.params, {"tokens": toks})
+            drop = rec.drop_fracs()
+            log(f"18b granite-moe-3b-a800m, {eight.n_layers} of {full.n_layers} layers, "
+                f"bfloat16, {n_params} parameters ({pbytes} bytes; {n_active} routed a "
+                f"token), batch {batch} x seq {seq}, {steps} steps through "
+                f"repro_torch.launch.train in the group, twice: losses "
+                f"{[round(x, 6) for x in first.losses]}; walls {first.result['wall_s']:.2f} s "
+                f"and {second.result['wall_s']:.2f} s, first steps "
+                f"{1e3 * first.step_s[0]:.1f} and {1e3 * second.step_s[0]:.1f} ms, median of "
+                f"the others {med:.3f} ms (p10 {np.percentile(steps_ms, 10):.3f}, p90 "
+                f"{np.percentile(steps_ms, 90):.3f}); bound {flop_ms + bytes_ms:.3f} ms (FLOPs "
+                f"{flops / 1e12:.4f} TFLOP at 989 TFLOP/s = {flop_ms:.3f} ms, plus AdamW's "
+                f"{opt_bytes} bytes at 3.35 TB/s = {bytes_ms:.3f} ms), "
+                f"{100 * (flop_ms + bytes_ms) / med:.1f}% of it; peak {peak / 2**30:.2f} GiB; "
+                f"drop fraction by layer on step 0's batch after training "
+                f"{[round(x, 5) for x in drop]}; losses equal {same_loss}, final parameters "
+                f"bit for bit {same_params}; launches of the hand kernels in the first run "
+                f"{ctx['moe_train_counts']}")
+            step_fn = train_lib.build_train_step(
+                model, RunConfig(total_steps=steps, warmup_steps=1), 1)
+            state = {"p": second.params, "o": second.opt}
+
+            def one_step():
+                state["p"], state["o"], _, m = step_fn(state["p"], state["o"],
+                                                       {"tokens": toks}, None)
+                float(m["loss"])
+
+            profiled(torch, one_step, "18b", "MoE training step")
+            if not (same_loss and same_params):
+                errors.append("18b: two MoE training runs differ")
+            if not all(np.isfinite(x) for x in first.losses):
+                errors.append("18b: a loss is not finite")
+            del first, second, model, rec, state, step_fn
+            torch.cuda.empty_cache()
+
+            # (c) granite's MoE block at full width, float32: the
+            # expert-parallel path with EP = 4 in this process and over
+            # all_to_all_single in the group of one, against the GSPMD path
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            p = moe_lib.init_moe(gen, full, torch.float32, dev)
+            x = (torch.randn((8, 128, d), generator=gen, device=dev)
+                 + torch.randn((d,), generator=gen, device=dev))
+            keys = ("router", "wg", "wi", "wo")
+            ep4, group1 = RankSet(dev, ranks=4), RankSet(dev)
+            e_local = e_pad // 4
+            shards = [x[:, j * 32:(j + 1) * 32] for j in range(4)]
+
+            def fwd_bwd(path, cfg_):
+                leaves = {kk: v.detach().requires_grad_(True) for kk, v in p.items()}
+                if path == "gspmd":
+                    y, aux = moe_lib.apply_moe_gspmd(leaves, x, cfg_)
+                elif path == "EP = 4 in one process":
+                    locs = [{"router": leaves["router"], **{
+                        kk: leaves[kk][j * e_local:(j + 1) * e_local]
+                        for kk in ("wi", "wg", "wo")}} for j in range(4)]
+                    ys, auxes = moe_lib.apply_moe(locs, shards, cfg_, ep=ep4)
+                    y, aux = torch.cat(ys, dim=1), auxes[0]
+                else:
+                    y, aux = moe_lib.apply_moe(leaves, x, cfg_, ep=group1)
+                gs = torch.autograd.grad((y.float() ** 2).sum(), [leaves[kk] for kk in keys])
+                return y.detach(), dict(zip(keys, gs)), aux["moe_drop_frac"]
+
+            paths = ("gspmd", "EP = 4 in one process", "all_to_all_single, group of one")
+            a2a_of = {c: dataclasses.replace(full, moe=dataclasses.replace(
+                full.moe, capacity_factor=c, impl="a2a")) for c in (8.0, 1.25)}
+            ops.reset_launch_counts()
+            res = {pth: fwd_bwd(pth, a2a_of[8.0]) for pth in paths}
+            y0, g0, _ = res["gspmd"]
+            parts = []
+            for pth in paths[1:]:
+                y, g, drop = res[pth]
+                y_err = float((y - y0).abs().max())
+                g_err = max(float((g[kk] - g0[kk]).abs().max() / g0[kk].abs().max())
+                            for kk in keys)
+                ok = torch.allclose(y, y0, rtol=2e-4, atol=2e-5) and all(
+                    torch.allclose(g[kk], g0[kk], rtol=2e-4,
+                                   atol=2e-5 * float(g0[kk].abs().max())) for kk in keys)
+                parts.append(f"{pth}: y max abs diff {y_err:.3g}, gradients max diff "
+                             f"{g_err:.3g} of each leaf's largest, drop {float(drop)}")
+                if not ok or float(drop) != 0.0:
+                    errors.append(f"18c: {pth} at capacity factor 8 parts from GSPMD")
+            drops, same, times = {}, {}, {}
+            for pth in paths:
+                r1 = fwd_bwd(pth, a2a_of[1.25])
+                r2 = fwd_bwd(pth, a2a_of[1.25])
+                drops[pth] = float(r1[2])
+                same[pth] = torch.equal(r1[0].view(torch.int32), r2[0].view(torch.int32)) and \
+                    all(torch.equal(r1[1][kk], r2[1][kk]) for kk in keys)
+                times[pth] = time_cuda(torch, lambda: fwd_bwd(pth, a2a_of[1.25]), launches=3,
+                                       batches=3, warmup=1)
+            ctx["a2a_counts"] = ops.launch_counts()
+            log(f"18c granite's MoE block at full width, float32, TF32 off, x {list(x.shape)}, "
+                f"{e_pad} padded experts; capacity factor 8 (no drop), each path against "
+                f"GSPMD held to rtol 2e-4, atol 2e-5 (gradients of sum(y^2): 2e-5 of each "
+                f"leaf's largest): {'; '.join(parts)}; capacity factor 1.25: drop fractions "
+                f"{drops}; two runs bit-identical (y and gradients) {same}; forward + "
+                f"backward device ms {({kk: round(v, 3) for kk, v in times.items()})}; "
+                f"launches of the hand kernels {ctx['a2a_counts']}")
+            if not all(same.values()):
+                errors.append(f"18c: two runs differ: {same}")
+            if not drops["gspmd"] > 0 or not drops["EP = 4 in one process"] > 0:
+                errors.append(f"18c: no record dropped at capacity factor 1.25: {drops}")
+            del p, x, res, y0, g0
+            torch.cuda.empty_cache()
+        finally:
+            tdist.destroy_process_group()
+        for name in ("dp_counts", "moe_train_counts", "a2a_counts"):
+            if any(ctx.get(name, {}).values()):
+                errors.append(f"18: a hand kernel launched on the path: {ctx[name]}")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("18 multi-rank training", phase_train_dp)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -2919,6 +3184,9 @@ def run(tmp: str) -> int:
         by_path["VLM prefill (paligemma, phase 15d)"] = ctx["vlm_counts"][k]
         by_path["whisper serving (phase 16b)"] = ctx["whisper_counts"][k]
         by_path["training (danube, phase 17b)"] = ctx["train_counts"][k]
+        by_path["training in an NCCL group of one (danube, phase 18a)"] = ctx["dp_counts"][k]
+        by_path["MoE training (granite, phase 18b)"] = ctx["moe_train_counts"][k]
+        by_path["expert-parallel MoE block (phase 18c)"] = ctx["a2a_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ reach gets zeros, as in JAX). :func:`microbatch_grads` splits the batch's
 leading axis into ``accum`` equal microbatches, takes the gradients of one
 microbatch at a time (only one microbatch's activations are live) and
 averages losses, aux values and gradients. Gradients accumulate in float32
-whatever the parameter's type and are cast back at the end.
+whatever the parameter's type and are cast back at the end, after the
+optional ``reduce`` (the trainer's exact mean over data-parallel ranks).
 """
 
 from __future__ import annotations
@@ -30,14 +31,17 @@ def value_and_grad(loss_fn, params, *args):
     return (loss.detach(), aux), tree_unflatten(params, gs)
 
 
-def microbatch_grads(loss_fn, params, batch, accum: int = 1):
+def microbatch_grads(loss_fn, params, batch, accum: int = 1, reduce=None):
     """Accumulated gradients of ``loss_fn(params, batch) -> (loss, aux)``
     (aux: a dict of scalar metrics) over ``accum`` microbatches. Returns
     ``(loss, aux, grads)``, the means over the microbatches; with equal
-    microbatch sizes these equal the full-batch quantities."""
-    if accum <= 1:
+    microbatch sizes these equal the full-batch quantities. ``reduce``, when
+    given, maps the float32 mean gradients (a tree) before their cast back
+    to the parameters' types: the data-parallel mean over ranks."""
+    if accum <= 1 and reduce is None:
         (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         return loss, aux, grads
+    accum = max(accum, 1)
     for x in batch.values():
         if x.shape[0] % accum != 0:
             raise ValueError(f"leading batch dim {x.shape[0]} not divisible by accum={accum}")
@@ -52,6 +56,8 @@ def microbatch_grads(loss_fn, params, batch, accum: int = 1):
         g_acc = tree_map(lambda a, g: a + g.float() / n, g_acc, grads)
         losses.append(loss)
         auxes.append(aux)
+    if reduce is not None:
+        g_acc = reduce(g_acc)
     grads = tree_map(lambda g, p: g.to(p.dtype), g_acc, params)
     aux = {k: torch.mean(torch.stack([a[k] for a in auxes]), dim=0) for k in auxes[0]}
     return torch.mean(torch.stack(losses)), aux, grads

@@ -11,6 +11,8 @@ mesh; the reference's pod-mesh functions (``make_production_mesh``,
 
 Launch the same command on every host with only the process id differing;
 the coordinator is process 0's ``HOST:PORT``, where it listens.
+:func:`join_process_group` is the launchers' way in: a group made by the
+caller, ``torchrun``'s, or the bootstrap's.
 """
 
 from __future__ import annotations
@@ -51,6 +53,11 @@ class DistributedInfo:
 
     def asdict(self) -> dict:
         return dict(dataclasses.asdict(self), device=str(self.device))
+
+
+def under_torchrun() -> bool:
+    """Whether ``torchrun`` started this process (``RANK``/``WORLD_SIZE`` set)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
 def _env_int(name: str) -> int | None:
@@ -116,3 +123,32 @@ def bootstrap_distributed(coordinator: str | None = None,
                             device_id=dev if dev.type == "cuda" else None)
     return DistributedInfo(initialized=True, coordinator=coordinator, process_count=n,
                            process_index=pid, device=dev)
+
+
+def join_process_group(device: torch.device, coordinator: str | None = None,
+                       num_processes: int | None = None,
+                       process_id: int | None = None) -> tuple[bool, torch.device]:
+    """Join the run's process group, if it has one: ``(whether this call
+    made the group, this rank's device)``.
+
+    In this order: a group the caller initialised is used as it is (on CUDA,
+    with the current card); under ``torchrun`` the group comes from its
+    environment (``env://``), on the card ``cuda:LOCAL_RANK``; otherwise
+    :func:`bootstrap_distributed` joins the group the flags or the
+    ``SSUMM_*`` environment ask for, and with one process nothing is
+    initialised. NCCL on the card, gloo on the CPU.
+    """
+    dist = torch.distributed
+    cuda = device.type == "cuda"
+    if dist.is_initialized():
+        return False, torch.device("cuda", torch.cuda.current_device()) if cuda else device
+    if under_torchrun():
+        if cuda:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK") or 0))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if cuda else "gloo", init_method="env://",
+                                timeout=datetime.timedelta(seconds=TIMEOUT_S),
+                                device_id=device if cuda else None)
+        return True, device
+    info = bootstrap_distributed(coordinator, num_processes, process_id, device=device)
+    return info.initialized, info.device

@@ -58,7 +58,6 @@ import argparse
 import dataclasses
 import hashlib
 import json
-import os
 import resource
 import sys
 import time
@@ -78,7 +77,7 @@ from repro_torch.graphs.feed import (
     shard_edges_from_cache_multihost,
 )
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import bootstrap_distributed, resolve_flags
+from repro_torch.launch.mesh import join_process_group, resolve_flags, under_torchrun
 from repro_torch.runtime import (
     RESUMABLE_EXIT,
     CheckpointManager,
@@ -98,11 +97,6 @@ def peak_rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
-def under_torchrun() -> bool:
-    """Whether ``torchrun`` started this process (``RANK``/``WORLD_SIZE`` set)."""
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
-
-
 def init_distributed(device: torch.device, coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> tuple[int, int, torch.device]:
@@ -117,26 +111,16 @@ def init_distributed(device: torch.device, coordinator: str | None = None,
     store. NCCL on the card, gloo on the CPU; CUDA without NCCL raises.
     """
     dist = torch.distributed
-    backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda" and not dist.is_nccl_available():
         raise RuntimeError("--distributed --device cuda needs NCCL, and this "
                            "PyTorch has no NCCL; use --device cpu (gloo)")
-    torchrun = under_torchrun()
-    if not dist.is_initialized() and not torchrun:
-        info = bootstrap_distributed(coordinator, num_processes, process_id, device=device)
-        if info.initialized:
-            return dist.get_rank(), dist.get_world_size(), info.device
-    if device.type == "cuda":
-        local = os.environ.get("LOCAL_RANK")
-        device = torch.device("cuda", int(local) if local not in (None, "")
-                              else torch.cuda.current_device())
-        torch.cuda.set_device(device)
+    _, device = join_process_group(device, coordinator, num_processes, process_id)
     if not dist.is_initialized():
-        if torchrun:
-            dist.init_process_group(backend, init_method="env://")
-        else:
-            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                    world_size=1)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
     return dist.get_rank(), dist.get_world_size(), device
 
 

@@ -1,28 +1,46 @@
 """The port's trainer: token pipeline → train loop → checkpoint/restart
-→ straggler and preemption handling, on one device.
+→ straggler and preemption handling, on one device or across the ranks of
+a ``torch.distributed`` group.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o_danube_1_8b --smoke \
         --steps 20 --batch 8 --seq 64 [--accum 2] [--compress int8|topk] \
         [--ckpt-dir DIR --ckpt-every 5 [--resume]] [--device cuda|cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --device cpu --arch granite_moe_3b_a800m --smoke --batch 8 --seq 32
+    ... --coordinator HOST:PORT --num-processes P --process-id i   (each process)
 
-Port of ``repro/launch/train.py`` for a single device. It takes the
-reference's flags and builds its ``RunConfig`` (warm-up a tenth of the
-steps); the reference's mesh, shardings, TP cap (``--want-model``) and XLA
-flags have no counterpart: the port trains on one device. Each step takes
-the gradients of ``Model.loss`` (``torch.autograd``; every block under
+Port of ``repro/launch/train.py``. It takes the reference's flags and
+builds its ``RunConfig`` (warm-up a tenth of the steps). Each step takes the
+gradients of ``Model.loss`` (``torch.autograd``; every block under
 ``torch.utils.checkpoint`` when ``RunConfig.remat``), averaged over
 ``--accum`` microbatches in float32, and applies AdamW at the cosine
-schedule's rate for the step being taken. ``--compress int8|topk`` sends
-the gradients through ``dist.compress.compressed_all_reduce`` over a world
-of one (the codec's round trip; the wire bytes it measures must equal
-``payload_bytes``). Checkpoints hold ``(params, AdamWState)``: keep-N,
-written asynchronously every ``--ckpt-every`` steps, and at the step
-reached when the loop ends unless that step was just saved (the reference
-saves again, at ``--steps``); ``--resume`` restores the latest and
-regenerates the token stream from that step. SIGTERM/SIGINT saves and stops
-at the next step. It prints the reference's JSON keys plus ``device``, the
-median step and the peak device memory. It runs on the card unless
-``--device cpu`` is given.
+schedule's rate for the step being taken.
+
+Across ranks (a group the caller made, ``torchrun``'s, or the bootstrap's
+flags and ``SSUMM_*`` environment; NCCL on the card, gloo with ``--device
+cpu``) it gives the reference's step on a mesh of P data-parallel devices,
+which is the single-device step on the global batch. It plans with
+``plan_mesh(P, batch, want_model)`` and accumulates ``max(--accum,
+plan.accum_steps)`` microbatches; each rank holds its part of every
+microbatch (``dist/data_parallel.py``), the MoE blocks take the global
+capacity, slots and load-balance loss, and the gradients are the exact
+mean over the ranks in rank order. Where P does not divide a microbatch,
+every rank takes the whole batch, as the reference's shape-aware sharding
+replicates it. ``--want-model`` other than 1 (tensor parallelism) is
+refused: the port has none yet.
+
+``--compress int8|topk`` sends the mean gradients through
+``dist.compress.compressed_all_reduce`` over every rank, each contributing
+``grads / P`` (the reference compresses its already reduced gradients);
+the wire bytes it measures must equal ``P × payload_bytes``. Checkpoints
+hold ``(params, AdamWState)``: rank 0 writes them, keep-N, asynchronously
+every ``--ckpt-every`` steps, and at the step reached when the loop ends
+unless that step was just saved (the reference saves again, at
+``--steps``); ``--resume`` restores rank 0's latest on every rank and
+regenerates the token stream from that step. SIGTERM/SIGINT on any rank
+saves and stops every rank at the same step. Rank 0 prints the reference's
+JSON keys plus ``device``, ``world``, the median step and the peak device
+memory. It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -36,31 +54,47 @@ import numpy as np
 import torch
 
 from repro_torch.configs import RunConfig, get_config, get_smoke_config
+from repro_torch.core.engine import global_preempt
 from repro_torch.core.query_engine import RankSet
+from repro_torch.core.types import resolve_device
 from repro_torch.data import SyntheticTokens, TokenDatasetConfig
 from repro_torch.data.loader import to_device
 from repro_torch.dist import CompressConfig, compressed_all_reduce, microbatch_grads
 from repro_torch.dist.compress import init_error_buffers, payload_bytes, tree_map
+from repro_torch.dist.data_parallel import DataParallel
+from repro_torch.launch.mesh import join_process_group
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
-from repro_torch.runtime import CheckpointManager, PreemptionGuard, StragglerMonitor
+from repro_torch.runtime import CheckpointManager, PreemptionGuard, StragglerMonitor, plan_mesh
 
 
-def build_train_step(model, run: RunConfig, accum: int):
-    """``step_fn(params, opt, batch, err) -> (params, opt, err, metrics)``."""
+def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None = None):
+    """``step_fn(params, opt, batch, err) -> (params, opt, err, metrics)``.
 
+    ``dp``: the data-parallel group when the ranks shard the batch; then
+    ``batch`` is this rank's rows (:meth:`DataParallel.rows`), the MoE
+    blocks run under ``dp`` (the global capacity, slots and load-balance
+    loss), and the float32 gradients and the loss are the exact means over
+    the ranks, added in rank order. ``--compress`` runs over every rank of
+    the default group (a world of one without one): each contributes
+    ``grads / P`` of the already reduced gradients, as the reference's
+    ``wire_allreduce`` does (its ``shard_map`` takes the replicated
+    gradients, ``in_specs=P()``)."""
     def loss_fn(p, b):
-        return model.loss(p, b, remat=run.remat)
+        return model.loss(p, b, remat=run.remat, dp=dp)
 
     compress = run.grad_compress
-    ranks = RankSet(model.device, ranks=1) if compress != "none" else None
+    ranks = RankSet(model.device) if compress != "none" else None
     ccfg = CompressConfig(compress, topk_ratio=run.topk_ratio)
 
     def step_fn(params, opt, batch, err):
-        loss, _aux, grads = microbatch_grads(loss_fn, params, batch, accum)
+        loss, _aux, grads = microbatch_grads(loss_fn, params, batch, accum,
+                                             reduce=dp.mean_tree if dp else None)
+        if dp:
+            loss = dp.mean(loss)
         wire_bytes = 0.0
         if compress != "none":
-            # each rank contributes grads / P; P = 1 here
+            # each rank contributes grads / P
             n = torch.full((), ranks.size, dtype=torch.float32, device=model.device)
             contrib = tree_map(lambda x: x / n.to(x.dtype), grads)
             grads, err, wire_bytes = compressed_all_reduce(contrib, err, ccfg, ranks)
@@ -82,6 +116,7 @@ class Trained:
     opt: object
     losses: list
     step_s: list
+    rank: int = 0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,24 +133,54 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress", choices=("none", "topk", "int8"), default="none")
+    ap.add_argument("--want-model", type=int, default=1,
+                    help="TP degree cap; the port has no tensor parallelism: 1 only")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of process 0 (default: $SSUMM_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="ranks in the run (default: $SSUMM_NUM_PROCESSES, else one)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (default: $SSUMM_PROCESS_ID)")
     return ap.parse_args(argv)
 
 
 def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
     """The trainer's run; ``params`` (the port's parameter tree on the run's
     device) replaces the seeded initialisation, ``cfg`` the model config of
-    ``--arch``/``--smoke``, when given."""
+    ``--arch``/``--smoke``, when given. Across ranks every rank calls it
+    with the same arguments; every rank returns the same losses and state."""
+    if args.want_model != 1:
+        raise ValueError(f"--want-model {args.want_model}: tensor parallelism (and FSDP's "
+                         "sharded parameter storage) is not ported yet, ROADMAP Queue 1 "
+                         "item 5.3; the port trains data-parallel only, --want-model 1")
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(lr=args.lr, total_steps=args.steps,
                     warmup_steps=max(args.steps // 10, 1),
                     checkpoint_every=args.ckpt_every, grad_compress=args.compress)
-    model = build_model(cfg, args.device)
-    dev = model.device
-    print(f"device={dev} batch={args.batch} accum={args.accum}")
+    own_group, dev = join_process_group(resolve_device(args.device), args.coordinator,
+                                        args.num_processes, args.process_id)
+    try:
+        return _train(args, cfg, run, dev, params)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
+    dp = DataParallel(dev)
+    main_rank = dp.rank == 0
+    plan = plan_mesh(dp.size, global_batch=args.batch, want_model=args.want_model)
+    accum = max(args.accum, plan.accum_steps)
+    shard = dp.shards(args.batch, accum)
+    rows = dp.rows(args.batch, accum)
+    model = build_model(cfg, dev)
+    if main_rank:
+        print(f"world={dp.size} per_rank_batch={plan.per_device_batch} accum={accum} "
+              f"device={dev}")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(args.seed) if params is None else params
@@ -123,23 +188,29 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
 
     ds = SyntheticTokens(TokenDatasetConfig(vocab=cfg.vocab, seq_len=args.seq,
                                             global_batch=args.batch, seed=args.seed))
-    step_fn = build_train_step(model, run, max(args.accum, 1))
+    step_fn = build_train_step(model, run, accum, dp if shard else None)
     err = init_error_buffers(params) if args.compress == "topk" else None
     ccfg = CompressConfig(args.compress, topk_ratio=run.topk_ratio)
-    if args.compress != "none":
+    if args.compress != "none" and main_rank:
         full = payload_bytes(params, CompressConfig("none"))
         wire = payload_bytes(params, ccfg)
         print(f"grad compression {args.compress}: {full / 2**20:.1f} MiB -> "
               f"{wire / 2**20:.1f} MiB per all-reduce payload (asserted against the "
               f"measured wire counter)")
 
+    # checkpoints: rank 0 writes them, every rank restores rank 0's latest
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, keep=run.keep_checkpoints)
-        if args.resume and ckpt.latest_step() is not None:
-            (params, opt), start_step, _ = ckpt.restore((params, opt))
-            print(f"resumed from step {start_step}")
+        if args.resume:
+            latest = ckpt.latest_step() if main_rank else None
+            step = int(dp.gather(torch.tensor(-1 if latest is None else latest,
+                                              device=dev))[0])
+            if step >= 0:
+                (params, opt), start_step, _ = ckpt.restore((params, opt), step=step)
+                if main_rank:
+                    print(f"resumed from step {start_step}")
     guard = PreemptionGuard()
     monitor = StragglerMonitor()
     monitor.on_straggler(lambda ev: print(f"  [straggler] step {ev.step}: "
@@ -151,27 +222,34 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
     try:
         for step in range(start_step, args.steps):
             monitor.begin_step()
-            batch = {"tokens": to_device(ds.batch(step).astype(np.int64), dev)}
+            batch = {"tokens": to_device(ds.batch(step)[rows].astype(np.int64), dev)}
             params, opt, err, metrics = step_fn(params, opt, batch, err)
             loss = float(metrics["loss"])  # the step's one host sync
             wire_per_step = metrics["wire_bytes"]
             losses.append(loss)
             step_s.append(monitor.end_step(step))
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if main_rank and (step % args.log_every == 0 or step == args.steps - 1):
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e}", flush=True)
-            if ckpt and (step + 1) % run.checkpoint_every == 0:
+            if ckpt and main_rank and (step + 1) % run.checkpoint_every == 0:
                 ckpt.save_async(step + 1, (params, opt))
-            if guard.preempted:
-                print("preemption signal: saving + exiting")
-                if ckpt:
-                    ckpt.save(step + 1, (params, opt))
+            # every rank stops at the same step (a signal lands on one rank)
+            if global_preempt(guard.preempted):
+                if main_rank:
+                    print("preemption signal: saving + exiting")
+                    if ckpt:
+                        # a step just queued for the writer thread is committed
+                        # there; saving it here too would race that write
+                        ckpt.wait()
+                        if ckpt.latest_step() != step + 1:
+                            ckpt.save(step + 1, (params, opt))
                 break
-        if ckpt:
+        if ckpt and main_rank:
             ckpt.wait()
             if ckpt.latest_step() != start_step + len(losses):  # not saved by the loop
                 ckpt.save(start_step + len(losses), (params, opt))
+        dp.barrier()  # the last commit is on disk before any rank returns
     finally:
         guard.restore()
     wall = time.time() - t_begin
@@ -183,22 +261,26 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
         "device": str(dev),
         "p50_step_s": float(np.median(step_s)) if step_s else None,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        "world": dp.size,
     }
     if args.compress != "none" and losses:
         # the wire bytes the all-reduce measured must equal what payload_bytes
-        # prices, a rank's payload times every rank (one here)
-        expected = payload_bytes(params, ccfg)
+        # prices, a rank's payload times every rank
+        expected = dp.size * payload_bytes(params, ccfg)
         if not np.isclose(wire_per_step, expected, rtol=1e-6):
             raise AssertionError(f"wire accounting drift: measured {wire_per_step:.0f} B per "
                                  f"step, payload_bytes prices {expected:.0f} B")
         result["wire_bytes_per_step"] = wire_per_step
         result["wire_bytes_expected"] = expected
-    return Trained(result=result, params=params, opt=opt, losses=losses, step_s=step_s)
+    return Trained(result=result, params=params, opt=opt, losses=losses, step_s=step_s,
+                   rank=dp.rank)
 
 
 def main(argv=None, params=None) -> dict:
+    """Run the trainer; rank 0 prints the JSON line (every rank returns it)."""
     out = train(parse_args(argv), params)
-    print(json.dumps(out.result))
+    if out.rank == 0:
+        print(json.dumps(out.result))
     return out.result
 
 

@@ -43,7 +43,9 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_fn: Callable  # (generator) -> params
-    forward: Callable  # (params, batch, last_only=False, remat=False) -> (logits, aux)
+    # (params, batch, last_only=False, remat=False, dp=None) -> (logits, aux);
+    # dp: the MoE blocks' data-parallel group (models/moe.py)
+    forward: Callable
     decode: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, seq_len) -> cache
     # Admission seam for recurrent families: clear_slot(cache, s) zeroes slot
@@ -58,8 +60,10 @@ class Model:
         gen.manual_seed(seed)
         return self.init_fn(gen)
 
-    def loss(self, params, batch, remat: bool = True):
-        logits, aux = self.forward(params, batch, remat=remat)
+    def loss(self, params, batch, remat: bool = True, dp=None):
+        """``(total, metrics)``; ``dp``, the data-parallel group, reaches
+        every MoE block (a family without one computes the same loss)."""
+        logits, aux = self.forward(params, batch, remat=remat, dp=dp)
         return causal_lm_loss(logits, batch["tokens"], moe_aux=aux.get("moe_aux"),
                               prefix_len=self.prefix_len)
 
@@ -90,9 +94,9 @@ class Model:
 def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    def fwd(params, batch, last_only=False, remat=False):
+    def fwd(params, batch, last_only=False, remat=False, dp=None):
         return transformer.forward(params, batch["tokens"], cfg, last_only=last_only,
-                                   remat=remat)
+                                   remat=remat, dp=dp)
 
     def dec(params, batch):
         return transformer.decode_step(params, batch["token"], batch["cache"], batch["pos"],
@@ -116,10 +120,10 @@ def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
         p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
         return p
 
-    def fwd(params, batch, last_only=False, remat=False):
+    def fwd(params, batch, last_only=False, remat=False, dp=None):
         prefix = torch.matmul(batch["img_emb"].to(dtype), params["img_proj"])
         return transformer.forward(params, batch["tokens"], cfg, prefix_emb=prefix,
-                                   last_only=last_only, remat=remat)
+                                   last_only=last_only, remat=remat, dp=dp)
 
     model = _dense_family(cfg, dev)
     return dataclasses.replace(model, init_fn=init, forward=fwd, prefix_len=cfg.img_tokens)
@@ -143,7 +147,8 @@ def restore_slots(new, old, s: int):
 
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
                       init_cache) -> Model:
-    def fwd(params, batch, last_only=False, remat=False):
+    def fwd(params, batch, last_only=False, remat=False, dp=None):
+        del dp  # no MoE block
         return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat)
 
     def dec(params, batch):
@@ -170,8 +175,9 @@ def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
 def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    def fwd(params, batch, last_only=False, remat=False):
-        del remat  # as in the reference: whisper's blocks are not rematerialized
+    def fwd(params, batch, last_only=False, remat=False, dp=None):
+        # as in the reference, whisper's blocks are not rematerialized; no MoE block
+        del remat, dp
         enc = whisper.encode(params, batch["frames"].to(dtype), cfg)
         return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only), {}
 

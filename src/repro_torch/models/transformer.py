@@ -34,19 +34,20 @@ def init_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def _ffn(p, h, cfg):
-    """The block's MoE or MLP half: (y, aux)."""
+def _ffn(p, h, cfg, dp=None):
+    """The block's MoE or MLP half: (y, aux); ``dp``: the MoE block's
+    data-parallel group (``models/moe.py::apply_moe``)."""
     if "moe" in p:
-        return moe_lib.apply_moe(p["moe"], h, cfg)
+        return moe_lib.apply_moe(p["moe"], h, cfg, dp=dp)
     return apply_mlp(p["mlp"], h, cfg.act), {}
 
 
-def apply_block(p, x, cfg, *, window=None):
+def apply_block(p, x, cfg, *, window=None, dp=None):
     """Train/prefill block: pre-norm attention + (MoE|MLP), residual."""
     h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
     x = x + attn.attention(p["attn"], h, cfg, window=window)
     h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    y, aux = _ffn(p, h, cfg)
+    y, aux = _ffn(p, h, cfg, dp)
     return x + y, aux
 
 
@@ -116,18 +117,20 @@ def unembed(params, h, cfg):
 
 
 def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False,
-            remat: bool = False):
+            remat: bool = False, dp=None):
     """Token logits for train/prefill; ``last_only`` keeps the last position.
     ``prefix_emb`` (the VLM's projected image): embeddings put before the
     token embeddings in sequence order, cast to their type. The aux:
     ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``.
-    ``remat``: each block under ``torch.utils.checkpoint``."""
+    ``remat``: each block under ``torch.utils.checkpoint``. ``dp``: the
+    data-parallel group, passed to every MoE block as the reference passes
+    its ``rules``."""
     h = embed_tokens(params, tokens, cfg)
     if prefix_emb is not None:
         h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
     aux_tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        blk = functools.partial(apply_block, cfg=cfg, window=_window(cfg, i))
+        blk = functools.partial(apply_block, cfg=cfg, window=_window(cfg, i), dp=dp)
         h, aux = remat_call(blk, remat, params[f"layer_{i}"], h)
         if "moe_aux" in aux:
             aux_tot = aux_tot + aux["moe_aux"]

@@ -1,6 +1,11 @@
-"""Preemption handling: SIGTERM/SIGINT → save at the next sync point, exit 75.
+"""Elastic mesh planning and preemption handling.
 
-Port of the preemption half of ``repro/runtime/elastic.py``.
+Port of ``repro/runtime/elastic.py`` (numpy only there too).
+:func:`plan_mesh` picks the (pod, data, model) factorization of a device
+count, keeping the global batch: the trainer plans its ranks with it, and
+takes the accumulation count it gives. ``make_mesh_from_plan`` has no
+counterpart: a rank is a process, and the port builds no mesh.
+
 ``PreemptionGuard`` turns SIGTERM/SIGINT into a cooperative "save and exit"
 flag that the engine polls at every host-sync point; the checkpoint
 manager's atomic commit keeps the save safe even if the grace period runs
@@ -11,15 +16,18 @@ leaving at worst an ignored ``.tmp-`` directory behind.
 Drivers that committed a checkpoint before stopping raise :class:`Preempted`
 and exit with :data:`RESUMABLE_EXIT` (BSD ``EX_TEMPFAIL``): a nonzero status
 that a supervisor tells apart from a crash, meaning "rerun the same command
-with ``--resume``". The port keeps no mesh plan: a resume on another
-number of ranks feeds the edge shards again at that count
-(:mod:`repro_torch.graphs.feed`) and loads the whole state on every rank.
+with ``--resume``". A summarizer resumed on another number of ranks feeds
+the edge shards again at that count (:mod:`repro_torch.graphs.feed`) and
+loads the whole state on every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
+
+import numpy as np
 
 #: exit status of a run that checkpointed and stopped on SIGTERM/SIGINT:
 #: nonzero (the work is unfinished) but resumable (EX_TEMPFAIL).
@@ -35,6 +43,55 @@ class Preempted(RuntimeError):
     def __init__(self, step: int):
         super().__init__(f"preempted; resumable from checkpoint step {step}")
         self.step = step
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    shape: tuple
+    axes: tuple
+    per_device_batch: int
+    accum_steps: int
+
+    @property
+    def n_devices(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+def plan_mesh(n_devices: int, *, global_batch: int, want_model: int = 16,
+              want_pods: int = 1) -> MeshPlan:
+    """Largest usable mesh for ``n_devices`` survivors.
+
+    Picks model-axis size = the largest divisor of ``n_devices`` that is
+    ≤ ``want_model`` (never grows TP beyond the tuned degree), then the pod
+    axis, then data soaks up the rest. Per-device batch follows from the
+    preserved global batch; if data-parallel width doesn't divide the global
+    batch, gradient accumulation supplies the remainder.
+    """
+    model = max(d for d in _divisors(n_devices) if d <= want_model)
+    rest = n_devices // model
+    pods = max(d for d in _divisors(rest) if d <= want_pods)
+    data = rest // pods
+    if pods > 1:
+        shape, axes = (pods, data, model), ("pod", "data", "model")
+    else:
+        shape, axes = (data, model), ("data", "model")
+    dp = pods * data
+    if global_batch % dp == 0:
+        per_dev, accum = global_batch // dp, 1
+    elif global_batch < dp:
+        # fewer examples than DP shards (e.g. the summarize launcher's
+        # batch-free plan): one per device, no accumulation
+        per_dev, accum = 1, 1
+    else:
+        # smallest accumulation count that makes microbatches divide evenly
+        accum = next(a for a in range(2, global_batch + 1)
+                     if global_batch % (dp * a) == 0 or dp * a >= global_batch)
+        per_dev = max(global_batch // (dp * accum), 1)
+    return MeshPlan(shape=shape, axes=axes, per_device_batch=per_dev, accum_steps=accum)
 
 
 class PreemptionGuard:
