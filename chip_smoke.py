@@ -169,12 +169,25 @@ card and CPU runs. Phases, one line each or a few:
      ``apply_moe_gspmd`` at capacity factor 8 (no drop; forward and the
      gradients of sum(y^2), rtol 2e-4, atol 2e-5), at 1.25 the drop
      fractions and two runs bit-identical, each path's forward + backward
-     device time.
+     device time;
+  19. tensor parallelism and FSDP's sharded storage (no hand kernel on it:
+     the reference's sharding is GSPMD), in an NCCL group of one: (a)
+     ``repro_torch.launch.train --want-model 2`` (danube at full width, 2
+     bfloat16 layers, batch 8 x 128, 3 steps) plans (1, 1) and equals the
+     ``--want-model 1`` run bit for bit; its ``stored_bytes_per_rank``;
+     (b) each tensor-parallel layer's ranks at m = 2 and 4 in this process
+     (``models/tp_ranks.py``: danube's MLP, head-parallel attention, the
+     vocab-parallel embedding and loss; granite's MoE block expert-parallel
+     over its 48 padded experts), float32, against the unsplit layer
+     (forward and the gradients of sum(y^2), rtol 2e-4, atol 2e-5), with
+     each one's forward + backward device time; (c) danube's full tree
+     sharded by the (data 2, model 4) plan for each of its 8 ranks and put
+     back together bit for bit, each rank's bytes against the table's.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b and 18c), and as the
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c and 19a), and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no
 result line, when CUDA is unavailable, when the package is missing, or when
 any phase fails. Imports nothing of the JAX package.
@@ -3165,6 +3178,190 @@ def run(tmp: str) -> int:
 
     smoke.phase("18 multi-rank training", phase_train_dp)
 
+    def phase_train_tp():
+        import torch.distributed as tdist
+        from repro_torch.configs import get_config
+        from repro_torch.dist.compress import tree_leaves
+        from repro_torch.dist.fsdp import Sharded
+        from repro_torch.dist.sharding import make_rules
+        from repro_torch.launch import summarize as launch
+        from repro_torch.launch import train as train_lib
+        from repro_torch.models import attention as attn
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.models import tp_ranks, transformer
+        from repro_torch.models.api import build_model, param_axes, param_shapes
+        from repro_torch.models.common import apply_mlp
+        from repro_torch.models.losses import causal_lm_loss
+        from repro_torch.runtime import plan_mesh
+        card = nvidia_smi("name,power.limit")
+        errors, times = [], {}
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        danube = get_config("h2o_danube_1_8b")
+
+        # (a) --want-model 2 in an NCCL group of one plans (1, 1): the
+        # --want-model 1 run bit for bit, at 17b's batch, 2 bfloat16 layers
+        two = dataclasses.replace(danube, n_layers=2)
+        argv = ["--arch", "h2o_danube_1_8b", "--steps", "3", "--batch", "8", "--seq", "128",
+                "--device", "cuda", "--log-every", "100"]
+        launch.init_distributed(dev)  # NCCL, a world of one
+        try:
+            one = train_lib.train(train_lib.parse_args(argv), cfg=two)
+            one_params = [x.clone() for x in tree_leaves(one.params)]
+            del one.params, one.opt, one.shards
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            tp_run = train_lib.train(train_lib.parse_args(argv + ["--want-model", "2"]), cfg=two)
+            wall_a = time.perf_counter() - t0
+            ctx["tp_counts"] = ops.launch_counts()
+            backend = tdist.get_backend()
+        finally:
+            tdist.destroy_process_group()
+        same = tp_run.losses == one.losses and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(tp_run.params), one_params))
+        res = tp_run.result
+        log(f"[{card}] 19a h2o-danube-1.8b full width, 2 bfloat16 layers, batch 8 x 128, "
+            f"3 steps through repro_torch.launch.train --want-model 2 in an NCCL group of "
+            f"{res['world']} ({backend}): mesh {res['mesh']}, {wall_a:.2f} s; losses "
+            f"{[round(x, 6) for x in tp_run.losses]}; equal to the --want-model 1 run bit for "
+            f"bit {same}; stored_bytes_per_rank {res['stored_bytes_per_rank']} (--want-model "
+            f"1: {one.result['stored_bytes_per_rank']}); launches of the hand kernels "
+            f"{ctx['tp_counts']}")
+        if not same or res["mesh"] != {"data": 1, "model": 1}:
+            errors.append(f"19a: --want-model 2 at a world of one differs (mesh {res['mesh']})")
+        del tp_run, one_params
+        torch.cuda.empty_cache()
+
+        # (b) each tensor-parallel layer's ranks at full width in this
+        # process (models/tp_ranks.py) against the unsplit layer, float32:
+        # forward and the gradients of sum(y^2), rtol 2e-4, atol 2e-5
+        # (18c's; the gradients' atol of each leaf's largest)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        f32 = dataclasses.replace(danube, dtype="float32")
+        d, f, h, k, hd = f32.d_model, f32.d_ff, f32.n_heads, f32.n_kv_heads, f32.hd
+
+        def leaf(*shape, scale=None):
+            sc = scale if scale is not None else 1.0 / float(np.sqrt(shape[0]))
+            return (torch.randn(shape, generator=gen, device=dev) * sc).requires_grad_(True)
+
+        x = leaf(2, 128, d, scale=1.0)
+        mlp_p = {"wi": leaf(d, f), "wg": leaf(d, f), "wo": leaf(f, d)}
+        att_p = {"wq": leaf(d, h, hd), "wk": leaf(d, k, hd), "wv": leaf(d, k, hd),
+                 "wo": leaf(h, hd, d, scale=1.0 / float(np.sqrt(h * hd)))}
+        table = leaf(f32.vocab, d, scale=0.02)
+        tokens = torch.randint(0, f32.vocab, (2, 128), generator=gen, device=dev)
+        granite = get_config("granite_moe_3b_a800m")
+        moe_p = {kk: v.requires_grad_(True) for kk, v in
+                 moe_lib.init_moe(gen, granite, torch.float32, dev).items()}
+        xm = (torch.randn((8, 128, granite.d_model), generator=gen, device=dev)
+              + torch.randn((granite.d_model,), generator=gen, device=dev)).requires_grad_(True)
+
+        def embed_whole():
+            hh = torch.tanh(transformer.embed_tokens({"embed": table}, tokens, f32))
+            return causal_lm_loss(transformer.unembed({"embed": table}, hh, f32), tokens)[0]
+
+        layers = {
+            "MLP (d 2560, ff 6912)": (
+                lambda m: tp_ranks.mlp(mlp_p, x, "silu", m),
+                lambda: apply_mlp(mlp_p, x, "silu"), [x, *mlp_p.values()]),
+            "attention (32 heads, 8 KV heads)": (
+                lambda m: tp_ranks.attention(att_p, x, f32, m, window=f32.swa_window),
+                lambda: attn.attention(att_p, x, f32, window=f32.swa_window),
+                [x, *att_p.values()]),
+            "embedding + loss (vocab 32000)": (
+                lambda m: tp_ranks.embed_and_loss(table, torch.tanh, tokens, f32, m)[2][0],
+                embed_whole, [table]),
+            "granite MoE block (48 padded experts, x [8, 128, 1536])": (
+                lambda m: tp_ranks.moe(moe_p, xm, granite, m)[0],
+                lambda: moe_lib.apply_moe_gspmd(moe_p, xm, granite)[0],
+                [xm, *moe_p.values()]),
+        }
+
+        def fwd_bwd(fn, leaves):
+            y = fn()
+            return y.detach(), torch.autograd.grad((y.float() ** 2).sum(), leaves)
+
+        ops.reset_launch_counts()
+        parts = []
+        for name, (split, whole, leaves) in layers.items():
+            y0, g0 = fwd_bwd(whole, leaves)
+            times[name] = {"unsplit": time_cuda(torch, lambda: fwd_bwd(whole, leaves),
+                                                launches=3, batches=3, warmup=1)}
+            for m in (2, 4):
+                y, g = fwd_bwd(lambda: split(m), leaves)
+                y_err = float((y - y0).abs().max())
+                g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g, g0))
+                ok = torch.allclose(y, y0, rtol=2e-4, atol=2e-5) and all(
+                    torch.allclose(a, b, rtol=2e-4, atol=2e-5 * float(b.abs().max()))
+                    for a, b in zip(g, g0))
+                times[name][f"m={m}"] = time_cuda(torch, lambda: fwd_bwd(lambda: split(m),
+                                                                         leaves),
+                                                  launches=3, batches=3, warmup=1)
+                parts.append(f"{name} m={m}: y max abs diff {y_err:.3g}, gradients {g_err:.3g}"
+                             f" of each leaf's largest")
+                if not ok:
+                    errors.append(f"19b: {name} at m={m} parts from the unsplit layer")
+        ctx["tp_layer_counts"] = ops.launch_counts()
+        ms = {kk: {a: round(b, 3) for a, b in v.items()} for kk, v in times.items()}
+        log(f"19b the tensor-parallel layers' ranks in one process against the unsplit "
+            f"layers, float32, TF32 off, x [2, 128, 2560]: {'; '.join(parts)}; forward + "
+            f"backward device ms {json.dumps(ms)}; launches of the hand kernels "
+            f"{ctx['tp_layer_counts']}")
+        del layers, mlp_p, att_p, table, moe_p, x, xm
+        torch.cuda.empty_cache()
+
+        # (c) danube's full tree stored by the (data 2, model 4) plan: each
+        # of the 8 ranks' shards, then the tree put back together bit for bit
+        model = build_model(danube, "cuda")
+        params = model.init(0)
+        rules = make_rules(plan_mesh(8, global_batch=8, want_model=4), "train")
+        shapes, axes = param_shapes(danube), param_axes(danube)
+        t0 = time.perf_counter()
+        layouts = [Sharded(rules, r, shapes, axes, None, None) for r in range(8)]
+        shards = [lay.shard(params) for lay in layouts]
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        back_ok, bytes_ok, per_rank, table_bytes = True, True, [], []
+        leaves = tree_leaves(params)
+        shard_leaves = [tree_leaves(sh) for sh in shards]
+        t0 = time.perf_counter()
+        for i, g in enumerate(leaves):
+            out = torch.empty_like(g)
+            for lay, sh in zip(layouts, shard_leaves):
+                out[tuple(lay.layouts[i].slices())] = sh[i]
+            back_ok &= bool(torch.equal(out, g))
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t0
+        for lay, sh in zip(layouts, shard_leaves):
+            got = sum(x.numel() * x.element_size() for x in sh)
+            want = 0
+            for ll, x in zip(lay.layouts, leaves):
+                n = 1
+                for dim, kept in zip(ll.shape, ll.spec):
+                    n *= dim // int(np.prod([rules.sizes[a] for a in kept] or [1]))
+                want += n * x.element_size()
+            per_rank.append(got)
+            table_bytes.append(want)
+            bytes_ok &= got == want
+        total = sum(x.numel() * x.element_size() for x in leaves)
+        log(f"19c h2o-danube-1.8b's full tree ({total} bytes, bfloat16 with float32 norms) "
+            f"stored by the (data 2, model 4) plan in this process: shards {shard_s:.2f} s, put "
+            f"back together bit for bit {back_ok} ({back_s:.2f} s); bytes a rank {per_rank}, "
+            f"the table's {table_bytes}")
+        if not (back_ok and bytes_ok):
+            errors.append(f"19c: shards put back {back_ok}, bytes as the table's {bytes_ok}")
+        del params, shards, shard_leaves, layouts, leaves, model
+        torch.cuda.empty_cache()
+        for name in ("tp_counts", "tp_layer_counts"):
+            if any(ctx.get(name, {}).values()):
+                errors.append(f"19: a hand kernel launched on the path: {ctx[name]}")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("19 tensor parallelism and sharded storage", phase_train_tp)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -3187,6 +3384,7 @@ def run(tmp: str) -> int:
         by_path["training in an NCCL group of one (danube, phase 18a)"] = ctx["dp_counts"][k]
         by_path["MoE training (granite, phase 18b)"] = ctx["moe_train_counts"][k]
         by_path["expert-parallel MoE block (phase 18c)"] = ctx["a2a_counts"][k]
+        by_path["training at --want-model 2 (danube, phase 19a)"] = ctx["tp_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

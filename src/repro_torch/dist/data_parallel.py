@@ -11,10 +11,10 @@ that step:
     ``[i·B/a, (i+1)·B/a)`` (``dist/microbatch.py``'s split), and rank ``r``
     holds its ``r``-th contiguous part, so the ranks in rank order hold each
     microbatch's tokens in global order;
-  * the exact mean of the gradients over the ranks, added in rank order
-    leaf by leaf (:meth:`DataParallel.mean_tree`), the same bits on every
-    rank and run after run (gloo's all-reduce at 4 ranks does not add in
-    rank order);
+  * the exact mean over the ranks, added in rank order (:meth:`DataParallel.mean`;
+    ``dist/fsdp.py`` takes each rank's shard of the gradients' mean through
+    :meth:`DataParallel.exchange`), the same bits on every rank and run
+    after run (gloo's all-reduce at 4 ranks does not add in rank order);
   * the sums and gathers the MoE block needs for the global capacity, slots
     and load-balance loss (``models/moe.py``).
 
@@ -32,7 +32,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.compress import tree_map
+
+def add_in_order(parts) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, left to right."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = acc + x
+    return acc
 
 
 class DataParallel:
@@ -74,26 +80,25 @@ class DataParallel:
         gather(out, x.contiguous()[None], group=self.pg)
         return out
 
+    def exchange(self, chunks: torch.Tensor) -> torch.Tensor:
+        """``chunks[j]`` goes to rank ``j``; row ``j`` of the result came
+        from rank ``j`` (``all_to_all_single`` over dim 0)."""
+        if self.size == 1:
+            return chunks
+        out = torch.empty_like(chunks)
+        dist.all_to_all_single(out, chunks.contiguous(), group=self.pg)
+        return out
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` added in rank order: exact for integers, the
         same bits on every rank for floats."""
-        if self.size == 1:
-            return x
-        parts = self.gather(x)
-        acc = parts[0]
-        for r in range(1, self.size):
-            acc = acc + parts[r]
-        return acc
+        return x if self.size == 1 else add_in_order(self.gather(x).unbind(0))
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """:meth:`sum` over the number of ranks (a true division)."""
         if self.size == 1:
             return x
         return self.sum(x) / torch.full((), self.size, dtype=x.dtype, device=x.device)
-
-    def mean_tree(self, tree):
-        """:meth:`mean` of every leaf, one leaf after another."""
-        return tree if self.size == 1 else tree_map(self.mean, tree)
 
     def barrier(self) -> None:
         if self.size > 1:

@@ -1,6 +1,8 @@
-"""Supernode ownership for the edge-sharded backend.
+"""Supernode ownership for the edge-sharded backend, and the trainer's rule
+table.
 
-Port of ``repro/dist/sharding.py``'s ``owner_hash_np`` and ``MeshRules.owner``.
+Port of ``repro/dist/sharding.py``'s ``owner_hash_np`` and ``MeshRules.owner``,
+and of its ``"train"`` table (:func:`make_rules`, :class:`Rules`).
 In ``"summarize"`` mode the reference splits the edge dimension over every
 mesh axis (``MeshRules.edge_spec``), so device ``d``'s shard is the ``d``-th
 contiguous block, where ``d`` is ``jax.lax.axis_index`` over all axes. A flat
@@ -9,6 +11,9 @@ group of P ranks has the same layout with rank ``r`` in place of ``d``.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 # Knuth's multiplicative constant, the reference's OWNER_HASH_MULT.
@@ -26,3 +31,90 @@ def owner_hash(ids: torch.Tensor, salt: int, n_ranks: int) -> torch.Tensor:
     x = x ^ (int(salt) & _U32)
     x = (x >> 16) ^ x
     return x % max(1, int(n_ranks))
+
+
+# ---------------------------------------------------------------------------
+# The train-mode rule table (the reference's ``make_rules(mesh, "train")``)
+# ---------------------------------------------------------------------------
+#
+# Port of ``_mode_table``'s ``"train"`` entries, the override-free
+# ``make_rules`` and ``MeshRules.spec``'s shape-aware assignment, on a
+# ``MeshPlan`` (``runtime/elastic.py``) instead of a jax mesh. Rank ``r`` is
+# the reference's device at position ``r`` of the plan's mesh in row-major
+# order: ``(d, m) = divmod(r, model)``, or ``(p, d, m)`` with a pod axis.
+
+#: tensor-parallel dimensions, split over ``model``
+TP_AXES = ("ff", "heads", "kv_heads", "vocab", "experts", "attn_embed")
+#: every logical name the reference's tables define
+LOGICAL = TP_AXES + ("batch", "seq", "kvseq", "embed", "act_embed", "edges")
+MODES = ("train",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """A logical-name → mesh-axes table bound to one plan."""
+
+    shape: tuple  # the plan's mesh shape
+    axes: tuple  # its axis names, e.g. ("data", "model")
+    table: dict  # logical name -> tuple of mesh axes (empty: replicated)
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axes, self.shape))
+
+    @property
+    def n_ranks(self) -> int:
+        return int(np.prod(self.shape))
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s coordinate on each mesh axis (row-major)."""
+        out = {}
+        for ax, n in zip(reversed(self.axes), reversed(self.shape)):
+            rank, out[ax] = divmod(rank, n)
+        return out
+
+    def spec(self, logical_axes, shape) -> tuple:
+        """The mesh axes each dimension of a ``shape`` leaf is split over:
+        the reference's ``MeshRules.spec`` with its divisibility guard. An
+        axis is dropped from a dimension when it does not divide it (with
+        the axes kept before it) or an earlier dimension took it."""
+        if len(logical_axes) != len(shape):
+            raise ValueError(f"axes {logical_axes} do not match shape {shape}")
+        used, out = set(), []
+        for name, dim in zip(logical_axes, shape):
+            if name is not None and name not in self.table:
+                raise KeyError(f"unknown logical axis {name!r}; known: {sorted(self.table)}")
+            kept, prod = [], 1
+            for ax in self.table.get(name, ()) if name is not None else ():
+                size = self.sizes.get(ax)
+                if ax in used or size is None or dim % (prod * size):
+                    continue
+                kept.append(ax)
+                used.add(ax)
+                prod *= size
+            out.append(tuple(kept))
+        return tuple(out)
+
+    def split_dim(self, logical_axes, shape, axis: str = "model") -> int | None:
+        """The dimension of a ``shape`` leaf split over ``axis`` (None: none)."""
+        for i, kept in enumerate(self.spec(logical_axes, shape)):
+            if axis in kept:
+                return i
+        return None
+
+
+def make_rules(plan, mode: str = "train") -> Rules:
+    """The rule table of ``plan`` (a :class:`~repro_torch.runtime.MeshPlan`)
+    in ``mode``: data parallelism over ``(pod, data)``, tensor parallelism
+    over ``model``, and FSDP's ``embed`` parameter dimension over the data
+    axes. The port trains only: the serve, summarize and eval tables have no
+    sharded user in it."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; the port has {MODES}")
+    dp = tuple(a for a in ("pod", "data") if a in plan.axes)
+    tp = ("model",) if "model" in plan.axes else ()
+    table = {name: () for name in LOGICAL}
+    table.update({name: tp for name in TP_AXES})
+    table["batch"] = dp
+    table["embed"] = dp
+    return Rules(shape=tuple(plan.shape), axes=tuple(plan.axes), table=table)

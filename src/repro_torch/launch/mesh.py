@@ -12,7 +12,8 @@ mesh; the reference's pod-mesh functions (``make_production_mesh``,
 Launch the same command on every host with only the process id differing;
 the coordinator is process 0's ``HOST:PORT``, where it listens.
 :func:`join_process_group` is the launchers' way in: a group made by the
-caller, ``torchrun``'s, or the bootstrap's.
+caller, ``torchrun``'s, or the bootstrap's. :func:`mesh_groups` splits the
+group into the trainer's data and model sub-groups.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import os
 import torch
 
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.data_parallel import DataParallel
+from repro_torch.dist.tensor_parallel import TensorParallel
 
 #: environment fallbacks for the bootstrap flags: one launch command can be
 #: broadcast to every host with only these three variables differing.
@@ -152,3 +155,26 @@ def join_process_group(device: torch.device, coordinator: str | None = None,
         return True, device
     info = bootstrap_distributed(coordinator, num_processes, process_id, device=device)
     return info.initialized, info.device
+
+
+def mesh_groups(rules, device: torch.device):
+    """This rank's two kinds of sub-group on the plan of ``rules``
+    (:func:`repro_torch.dist.sharding.make_rules`): ``(data, model)``, a
+    :class:`~repro_torch.dist.data_parallel.DataParallel` over the ranks
+    with this rank's model coordinate (one per model rank, its data
+    parallelism) and a :class:`~repro_torch.dist.tensor_parallel.TensorParallel`
+    over the ranks with its data coordinates (one per data rank). Rank
+    ``r`` is ``(d, m) = divmod(r, model)``. Every rank of the default group
+    calls this with the same plan (``new_group`` is collective); a world of
+    one makes no group."""
+    n, m = rules.n_ranks, rules.sizes.get("model", 1)
+    if n == 1:
+        return DataParallel(device), TensorParallel(device, rules=rules)
+    dist = torch.distributed
+    if dist.get_world_size() != n:
+        raise ValueError(f"a plan of {n} ranks in a group of {dist.get_world_size()}")
+    data_pg, _ = dist.new_subgroups_by_enumeration(
+        [[j * m + i for j in range(n // m)] for i in range(m)])
+    model_pg, _ = dist.new_subgroups_by_enumeration(
+        [[j * m + i for i in range(m)] for j in range(n // m)])
+    return DataParallel(device, data_pg), TensorParallel(device, model_pg, rules)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 
@@ -62,46 +63,70 @@ from repro_torch.data.loader import to_device
 from repro_torch.dist import CompressConfig, compressed_all_reduce, microbatch_grads
 from repro_torch.dist.compress import init_error_buffers, payload_bytes, tree_map
 from repro_torch.dist.data_parallel import DataParallel
-from repro_torch.launch.mesh import join_process_group
-from repro_torch.models.api import build_model
-from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.dist.fsdp import Sharded
+from repro_torch.dist.sharding import make_rules
+from repro_torch.dist.tensor_parallel import TensorParallel
+from repro_torch.launch.mesh import join_process_group, mesh_groups
+from repro_torch.models.api import build_model, param_axes, param_shapes
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
+from repro_torch.optim.adamw import sharded_global_norm
 from repro_torch.runtime import CheckpointManager, PreemptionGuard, StragglerMonitor, plan_mesh
 
 
-def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None = None):
+def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None = None,
+                     tp: TensorParallel | None = None, fs: Sharded | None = None):
     """``step_fn(params, opt, batch, err) -> (params, opt, err, metrics)``.
 
-    ``dp``: the data-parallel group when the ranks shard the batch; then
-    ``batch`` is this rank's rows (:meth:`DataParallel.rows`), the MoE
-    blocks run under ``dp`` (the global capacity, slots and load-balance
-    loss), and the float32 gradients and the loss are the exact means over
-    the ranks, added in rank order. ``--compress`` runs over every rank of
-    the default group (a world of one without one): each contributes
-    ``grads / P`` of the already reduced gradients, as the reference's
-    ``wire_allreduce`` does (its ``shard_map`` takes the replicated
-    gradients, ``in_specs=P()``)."""
+    ``fs``: the sharded storage across ranks (``dist/fsdp.py``; None, or a
+    world of one: every leaf whole); ``params`` and the moments are then
+    this rank's shards, gathered over the data ranks before the forward,
+    and the gradients reduced to shards after it. ``dp``: the data-parallel
+    group when the ranks shard the batch (with ``fs``); then ``batch`` is
+    this rank's rows (:meth:`DataParallel.rows`), the MoE blocks run under
+    ``dp`` (the global capacity, slots and load-balance loss), and the
+    float32 gradients and the loss are the exact means over the data
+    ranks, added in rank order. ``tp``: the model group, over which the
+    layers split (``dist/tensor_parallel.py``).
+    ``--compress`` runs over every rank of the default group (a world of
+    one without one) on the whole mean gradient: each contributes ``grads /
+    P`` of it, as the reference's ``wire_allreduce`` does (its
+    ``shard_map`` takes the replicated gradients, ``in_specs=P()``); the
+    result is sharded again."""
     def loss_fn(p, b):
-        return model.loss(p, b, remat=run.remat, dp=dp)
+        return model.loss(p, b, remat=run.remat, dp=dp, tp=tp)
 
     compress = run.grad_compress
     ranks = RankSet(model.device) if compress != "none" else None
     ccfg = CompressConfig(compress, topk_ratio=run.topk_ratio)
+    sharded = fs is not None and not fs.trivial
+    # every rank computes the whole mean gradient: one model rank and a
+    # batch the data ranks do not split (the single-device step)
+    whole = not sharded or (dp is None and fs.model.size == 1)
+    world = DataParallel(model.device) if sharded else None
 
     def step_fn(params, opt, batch, err):
-        loss, _aux, grads = microbatch_grads(loss_fn, params, batch, accum,
-                                             reduce=dp.mean_tree if dp else None)
+        views = fs.views(params) if sharded else params
+        reduce = None if whole else functools.partial(fs.reduce, mean=dp is not None)
+        loss, _aux, grads = microbatch_grads(loss_fn, views, batch, accum, reduce=reduce)
         if dp:
             loss = dp.mean(loss)
         wire_bytes = 0.0
+        gnorm = None  # global_norm of the gradients, where they are whole
         if compress != "none":
+            full = grads if whole else fs.full(grads)
             # each rank contributes grads / P
             n = torch.full((), ranks.size, dtype=torch.float32, device=model.device)
-            contrib = tree_map(lambda x: x / n.to(x.dtype), grads)
+            contrib = tree_map(lambda x: x / n.to(x.dtype), full)
             grads, err, wire_bytes = compressed_all_reduce(contrib, err, ccfg, ranks)
+        if sharded and (whole or compress != "none"):
+            gnorm = global_norm(grads)
+            grads = fs.shard(grads)
+        elif sharded:
+            gnorm = sharded_global_norm(grads, fs.owners(), world)
         lr = cosine_schedule(opt.step + 1, base_lr=run.lr, warmup=run.warmup_steps,
                              total=run.total_steps, min_ratio=run.lr_min_ratio)
-        params, opt, om = adamw_update(grads, opt, params, lr=lr,
-                                       weight_decay=run.weight_decay, grad_clip=run.grad_clip)
+        params, opt, om = adamw_update(grads, opt, params, lr=lr, weight_decay=run.weight_decay,
+                                       grad_clip=run.grad_clip, gnorm=gnorm)
         return params, opt, err, {"loss": loss, "wire_bytes": float(wire_bytes), **om}
 
     return step_fn
@@ -109,7 +134,8 @@ def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None 
 
 @dataclasses.dataclass
 class Trained:
-    """A run's printed result, its final state and every step's loss and wall."""
+    """A run's printed result, its final global state (on every rank), every
+    step's loss and wall, and the parameter shards this rank stored."""
 
     result: dict
     params: dict
@@ -117,6 +143,7 @@ class Trained:
     losses: list
     step_s: list
     rank: int = 0
+    shards: dict | None = None  # this rank's stored parameter shards
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -133,8 +160,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress", choices=("none", "topk", "int8"), default="none")
-    ap.add_argument("--want-model", type=int, default=1,
-                    help="TP degree cap; the port has no tensor parallelism: 1 only")
+    ap.add_argument("--want-model", type=int, default=1, help="TP degree cap")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -152,10 +178,6 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
     device) replaces the seeded initialisation, ``cfg`` the model config of
     ``--arch``/``--smoke``, when given. Across ranks every rank calls it
     with the same arguments; every rank returns the same losses and state."""
-    if args.want_model != 1:
-        raise ValueError(f"--want-model {args.want_model}: tensor parallelism (and FSDP's "
-                         "sharded parameter storage) is not ported yet, ROADMAP Queue 1 "
-                         "item 5.3; the port trains data-parallel only, --want-model 1")
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(lr=args.lr, total_steps=args.steps,
@@ -171,24 +193,27 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
 
 
 def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
-    dp = DataParallel(dev)
-    main_rank = dp.rank == 0
-    plan = plan_mesh(dp.size, global_batch=args.batch, want_model=args.want_model)
+    world = DataParallel(dev)
+    main_rank = world.rank == 0
+    plan = plan_mesh(world.size, global_batch=args.batch, want_model=args.want_model)
+    rules = make_rules(plan, "train")
+    dp, tp = mesh_groups(rules, dev)
     accum = max(args.accum, plan.accum_steps)
     shard = dp.shards(args.batch, accum)
     rows = dp.rows(args.batch, accum)
     model = build_model(cfg, dev)
+    fs = Sharded(rules, world.rank, param_shapes(cfg), param_axes(cfg), dp, tp)
     if main_rank:
-        print(f"world={dp.size} per_rank_batch={plan.per_device_batch} accum={accum} "
-              f"device={dev}")
+        print(f"world={world.size} mesh={dict(zip(plan.axes, plan.shape))} "
+              f"per_rank_batch={plan.per_device_batch} accum={accum} device={dev}")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(args.seed) if params is None else params
-    opt = adamw_init(params)
 
     ds = SyntheticTokens(TokenDatasetConfig(vocab=cfg.vocab, seq_len=args.seq,
                                             global_batch=args.batch, seed=args.seed))
-    step_fn = build_train_step(model, run, accum, dp if shard else None)
+    step_fn = build_train_step(model, run, accum, dp if shard else None,
+                               tp if tp.size > 1 else None, fs)
     err = init_error_buffers(params) if args.compress == "topk" else None
     ccfg = CompressConfig(args.compress, topk_ratio=run.topk_ratio)
     if args.compress != "none" and main_rank:
@@ -197,20 +222,36 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
         print(f"grad compression {args.compress}: {full / 2**20:.1f} MiB -> "
               f"{wire / 2**20:.1f} MiB per all-reduce payload (asserted against the "
               f"measured wire counter)")
+    wire_expected = world.size * payload_bytes(params, ccfg)
 
-    # checkpoints: rank 0 writes them, every rank restores rank 0's latest
+    # checkpoints hold the global state: rank 0 writes them; every rank
+    # restores rank 0's latest and shards it by this run's plan
     start_step = 0
     ckpt = None
+    restored = None
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, keep=run.keep_checkpoints)
         if args.resume:
             latest = ckpt.latest_step() if main_rank else None
-            step = int(dp.gather(torch.tensor(-1 if latest is None else latest,
-                                              device=dev))[0])
+            step = int(world.gather(torch.tensor(-1 if latest is None else latest,
+                                                 device=dev))[0])
             if step >= 0:
-                (params, opt), start_step, _ = ckpt.restore((params, opt), step=step)
+                restored, start_step, _ = ckpt.restore((params, adamw_init(params)), step=step)
+                params = restored[0]
                 if main_rank:
                     print(f"resumed from step {start_step}")
+    shards = fs.shard(params)
+    if restored is None:
+        opt = adamw_init(shards)
+    else:
+        opt = AdamWState(restored[1].step, fs.shard(restored[1].mu), fs.shard(restored[1].nu))
+    del params, restored
+    stored = fs.stored_bytes(shards)
+
+    def global_state():
+        """The global ``(params, AdamWState)`` on every rank (collective)."""
+        return fs.full(shards), AdamWState(opt.step, fs.full(opt.mu), fs.full(opt.nu))
+
     guard = PreemptionGuard()
     monitor = StragglerMonitor()
     monitor.on_straggler(lambda ev: print(f"  [straggler] step {ev.step}: "
@@ -223,7 +264,7 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
         for step in range(start_step, args.steps):
             monitor.begin_step()
             batch = {"tokens": to_device(ds.batch(step)[rows].astype(np.int64), dev)}
-            params, opt, err, metrics = step_fn(params, opt, batch, err)
+            shards, opt, err, metrics = step_fn(shards, opt, batch, err)
             loss = float(metrics["loss"])  # the step's one host sync
             wire_per_step = metrics["wire_bytes"]
             losses.append(loss)
@@ -232,10 +273,14 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e}", flush=True)
-            if ckpt and main_rank and (step + 1) % run.checkpoint_every == 0:
-                ckpt.save_async(step + 1, (params, opt))
+            if ckpt and (step + 1) % run.checkpoint_every == 0:
+                state = global_state()
+                if main_rank:
+                    ckpt.save_async(step + 1, state)
+                del state
             # every rank stops at the same step (a signal lands on one rank)
             if global_preempt(guard.preempted):
+                state = global_state() if ckpt else None
                 if main_rank:
                     print("preemption signal: saving + exiting")
                     if ckpt:
@@ -243,13 +288,15 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
                         # there; saving it here too would race that write
                         ckpt.wait()
                         if ckpt.latest_step() != step + 1:
-                            ckpt.save(step + 1, (params, opt))
+                            ckpt.save(step + 1, state)
+                del state
                 break
+        params, opt_state = global_state()
         if ckpt and main_rank:
             ckpt.wait()
             if ckpt.latest_step() != start_step + len(losses):  # not saved by the loop
-                ckpt.save(start_step + len(losses), (params, opt))
-        dp.barrier()  # the last commit is on disk before any rank returns
+                ckpt.save(start_step + len(losses), (params, opt_state))
+        world.barrier()  # the last commit is on disk before any rank returns
     finally:
         guard.restore()
     wall = time.time() - t_begin
@@ -261,19 +308,20 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
         "device": str(dev),
         "p50_step_s": float(np.median(step_s)) if step_s else None,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
-        "world": dp.size,
+        "world": world.size,
+        "mesh": dict(zip(plan.axes, plan.shape)),
+        "stored_bytes_per_rank": stored,
     }
     if args.compress != "none" and losses:
         # the wire bytes the all-reduce measured must equal what payload_bytes
-        # prices, a rank's payload times every rank
-        expected = dp.size * payload_bytes(params, ccfg)
-        if not np.isclose(wire_per_step, expected, rtol=1e-6):
+        # prices, a rank's payload (the whole gradient) times every rank
+        if not np.isclose(wire_per_step, wire_expected, rtol=1e-6):
             raise AssertionError(f"wire accounting drift: measured {wire_per_step:.0f} B per "
-                                 f"step, payload_bytes prices {expected:.0f} B")
+                                 f"step, payload_bytes prices {wire_expected:.0f} B")
         result["wire_bytes_per_step"] = wire_per_step
-        result["wire_bytes_expected"] = expected
-    return Trained(result=result, params=params, opt=opt, losses=losses, step_s=step_s,
-                   rank=dp.rank)
+        result["wire_bytes_expected"] = wire_expected
+    return Trained(result=result, params=params, opt=opt_state, losses=losses, step_s=step_s,
+                   rank=world.rank, shards=shards)
 
 
 def main(argv=None, params=None) -> dict:

@@ -19,12 +19,14 @@ xLSTM, and the encoder-decoder (whisper: ``batch["frames"]`` through the
 encoder, then the teacher-forced decoder; decode attends to the cache's
 cross K/V). The two recurrent families set the server's admission seam,
 ``clear_slot`` and ``restore_slots`` (see :class:`Model`).
-:func:`param_shapes` gives each family's tree of leaf shapes.
+:func:`param_shapes` gives each family's tree of leaf shapes, and
+:func:`param_axes` their logical sharding axes (the trainer's rule table).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -34,7 +36,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.dist.microbatch import value_and_grad
 from repro_torch.models import transformer, whisper, xlstm, zamba2
 from repro_torch.models.common import DTYPES, dense_init, tree_map
-from repro_torch.models.losses import causal_lm_loss
+from repro_torch.models.losses import causal_lm_loss, causal_lm_loss_parallel
 from repro_torch.optim import adamw_update, cosine_schedule
 
 
@@ -43,8 +45,10 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_fn: Callable  # (generator) -> params
-    # (params, batch, last_only=False, remat=False, dp=None) -> (logits, aux);
-    # dp: the MoE blocks' data-parallel group (models/moe.py)
+    # (params, batch, last_only=False, remat=False, dp=None, tp=None) -> (logits, aux);
+    # dp: the MoE blocks' data-parallel group (models/moe.py); tp: the model
+    # group (dist/tensor_parallel.py), params then this rank's view of the
+    # stored leaves
     forward: Callable
     decode: Callable  # (params, batch) -> (logits, cache)
     init_cache: Callable  # (batch, seq_len) -> cache
@@ -60,12 +64,17 @@ class Model:
         gen.manual_seed(seed)
         return self.init_fn(gen)
 
-    def loss(self, params, batch, remat: bool = True, dp=None):
+    def loss(self, params, batch, remat: bool = True, dp=None, tp=None):
         """``(total, metrics)``; ``dp``, the data-parallel group, reaches
-        every MoE block (a family without one computes the same loss)."""
-        logits, aux = self.forward(params, batch, remat=remat, dp=dp)
-        return causal_lm_loss(logits, batch["tokens"], moe_aux=aux.get("moe_aux"),
-                              prefix_len=self.prefix_len)
+        every MoE block (a family without one computes the same loss);
+        ``tp``, the model group, splits the dense family's layers, and the
+        loss of vocab-sharded logits is the vocab-parallel one."""
+        logits, aux = self.forward(params, batch, remat=remat, dp=dp, tp=tp)
+        loss = causal_lm_loss
+        if logits.shape[-1] != self.cfg.vocab:  # this model rank's vocab part
+            loss = functools.partial(causal_lm_loss_parallel, tp=tp)
+        return loss(logits, batch["tokens"], moe_aux=aux.get("moe_aux"),
+                    prefix_len=self.prefix_len)
 
     def train_step(self, params, opt_state, batch, run: RunConfig | None = None,
                    remat: bool = True):
@@ -91,12 +100,27 @@ class Model:
         return logits[:, -1]
 
 
+def _whole_leaves(cfg: ModelConfig):
+    """A family forward without tensor-parallel compute, under a model group
+    ``tp``: every leaf is gathered whole first (each model rank computes the
+    whole step, keeping its own part of each leaf's gradient)."""
+    def wrap(fwd):
+        @functools.wraps(fwd)
+        def run(params, batch, last_only=False, remat=False, dp=None, tp=None):
+            if tp is not None and tp.size > 1:
+                params = tree_map(lambda v, a, s: tp.take(v, a, s, None, partial=False),
+                                  params, param_axes(cfg), param_shapes(cfg))
+            return fwd(params, batch, last_only=last_only, remat=remat, dp=dp)
+        return run
+    return wrap
+
+
 def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    def fwd(params, batch, last_only=False, remat=False, dp=None):
+    def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
         return transformer.forward(params, batch["tokens"], cfg, last_only=last_only,
-                                   remat=remat, dp=dp)
+                                   remat=remat, dp=dp, tp=tp)
 
     def dec(params, batch):
         return transformer.decode_step(params, batch["token"], batch["cache"], batch["pos"],
@@ -120,6 +144,7 @@ def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
         p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
         return p
 
+    @_whole_leaves(cfg)
     def fwd(params, batch, last_only=False, remat=False, dp=None):
         prefix = torch.matmul(batch["img_emb"].to(dtype), params["img_proj"])
         return transformer.forward(params, batch["tokens"], cfg, prefix_emb=prefix,
@@ -147,6 +172,7 @@ def restore_slots(new, old, s: int):
 
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
                       init_cache) -> Model:
+    @_whole_leaves(cfg)
     def fwd(params, batch, last_only=False, remat=False, dp=None):
         del dp  # no MoE block
         return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat)
@@ -175,6 +201,7 @@ def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
 def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
+    @_whole_leaves(cfg)
     def fwd(params, batch, last_only=False, remat=False, dp=None):
         # as in the reference, whisper's blocks are not rematerialized; no MoE block
         del remat, dp
@@ -210,6 +237,21 @@ def param_shapes(cfg: ModelConfig) -> dict:
     out = transformer.param_shapes(cfg)
     if cfg.family == "vlm":
         out["img_proj"] = (cfg.img_dim, cfg.d_model)
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical sharding axes of every leaf, in :func:`param_shapes`' tree:
+    the reference's ``model.axes()``, copied from its ``Px`` annotations."""
+    if cfg.family == "hybrid":
+        return zamba2.param_axes(cfg)
+    if cfg.family == "xlstm":
+        return xlstm.param_axes(cfg)
+    if cfg.family == "encdec":
+        return whisper.param_axes(cfg)
+    out = transformer.param_axes(cfg)
+    if cfg.family == "vlm":
+        out["img_proj"] = (None, "embed")
     return out
 
 

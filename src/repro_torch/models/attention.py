@@ -40,6 +40,16 @@ def init_attention(gen, cfg, d_model=None, dtype=torch.bfloat16, bias=None, devi
     return p
 
 
+def attention_axes(bias: bool) -> dict:
+    """The logical axes of :func:`init_attention`'s leaves: q, k and v are
+    stored split on ``attn_embed`` (d_model) first, ``wo`` on its heads."""
+    out = {"wq": ("attn_embed", "heads", None), "wk": ("attn_embed", "kv_heads", None),
+           "wv": ("attn_embed", "kv_heads", None), "wo": ("heads", None, "attn_embed")}
+    if bias:
+        out.update(bq=("heads", None), bk=("kv_heads", None), bv=("kv_heads", None))
+    return out
+
+
 def _proj(x, w):
     """``einsum("bsd,dhx->bshx")`` as one matmul over the flattened heads."""
     d, h, hd = w.shape
@@ -74,18 +84,68 @@ def mha(q, k, v, mask):
     return out.reshape(b, s, h * hd)
 
 
+def attention_shapes(cfg, bias: bool, d_model=None) -> dict:
+    """The shape of every leaf :func:`init_attention` makes."""
+    d = d_model or cfg.d_model
+    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d)}
+    if bias:
+        out.update(bq=(h, hd), bk=(k, hd), bv=(k, hd))
+    return out
+
+
 def attention(p, x, cfg, *, positions=None, causal: bool = True, window=None,
-              use_rope: bool = True):
+              use_rope: bool = True, kv_idx=None, tp=None):
     """Full-sequence attention (train / prefill): blockwise online softmax
-    (models/flash.py; full scores are never materialized)."""
+    (models/flash.py; full scores are never materialized). ``kv_idx``: the
+    KV heads each query head of ``p`` attends to (a rank's part of the
+    heads, when its KV heads are the whole set). ``tp``: the model group,
+    over which the heads are split (:func:`attention_tp`)."""
+    if tp is not None:
+        return attention_tp(p, x, cfg, tp, positions=positions, causal=causal, window=window,
+                            use_rope=use_rope)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x)
+    if kv_idx is not None:
+        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
     pos = positions if positions is not None else torch.arange(s, device=x.device)
     if use_rope:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
     out = blockwise_attention(q, k, v, causal=causal, window=window)
     return _out(p, out.reshape(b, s, -1))
+
+
+def head_part(cfg, rank: int, size: int) -> tuple[tuple[int, int], object]:
+    """Model rank ``rank``'s query heads ``[h0, h1)`` of ``size`` ranks, and
+    the KV heads they read: None where the ranks split the KV heads too
+    (the rank's own), else the index of each query head's KV head."""
+    per = cfg.n_heads // size
+    h0, h1 = rank * per, (rank + 1) * per
+    if cfg.n_kv_heads % size == 0:
+        return (h0, h1), None
+    return (h0, h1), torch.arange(h0, h1) // (cfg.n_heads // cfg.n_kv_heads)
+
+
+def attention_tp(p, x, cfg, tp, **kw):
+    """Head-parallel attention over the model group ``tp``: each rank
+    projects and attends with its query heads (and its KV heads, or every
+    KV head where the ranks do not split them), then ``wo`` on its heads and
+    one reduce. ``wq``/``wk``/``wv`` are stored split on ``d_model`` and
+    gathered first. Where the group does not split the heads, every rank
+    computes the whole attention."""
+    shapes = attention_shapes(cfg, "bq" in p, x.shape[-1])
+    axes = attention_axes("bq" in p)
+    if not tp.splits(cfg.n_heads):
+        return attention({k: tp.take(v, axes[k], shapes[k], None, partial=False)
+                          for k, v in p.items()}, x, cfg, **kw)
+    _, kv_idx = head_part(cfg, tp.rank, tp.size)
+    kv = (1, 0) if kv_idx is None else (None, None)  # (wk/wv, bk/bv) part dims
+    dims = {"wq": 1, "wo": 0, "bq": 0, "wk": kv[0], "wv": kv[0], "bk": kv[1], "bv": kv[1]}
+    local = {k: tp.take(v, axes[k], shapes[k], dims.get(k)) for k, v in p.items()}
+    if kv_idx is not None:
+        kv_idx = kv_idx.to(x.device)
+    return tp.reduce(attention(local, tp.copy(x), cfg, kv_idx=kv_idx, **kw))
 
 
 def attention_decode(p, x, cfg, cache_k, cache_v, pos, *, window=None,

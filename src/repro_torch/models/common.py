@@ -3,10 +3,12 @@
 Port of ``repro/models/common.py``. Parameters are plain nested dicts of
 tensors with the reference's keys, so a reference parameter tree carries
 over leaf for leaf (:func:`repro_torch.core.convert.lm_params_from_numpy`).
-The reference's ``Px`` leaves and logical sharding axes serve its mesh; the
-port has no mesh and leaves them out. Random draws come from an explicit
-``torch.Generator``: one float32 tensor at a time, scaled, then cast, so a
-full-width model is never held in float32 whole.
+The reference's ``Px`` leaves pair each leaf with its logical sharding axes;
+the port keeps the axes as trees of their own beside the shapes
+(``models/api.py::param_axes``), which the trainer's rule table reads.
+Random draws come from an explicit ``torch.Generator``: one float32 tensor
+at a time, scaled, then cast, so a full-width model is never held in
+float32 whole.
 """
 
 from __future__ import annotations
@@ -103,6 +105,11 @@ def norm_shapes(d, kind: str = "rmsnorm") -> dict:
     return {"scale": (d,)} if kind == "rmsnorm" else {"scale": (d,), "bias": (d,)}
 
 
+def norm_axes(kind: str = "rmsnorm") -> dict:
+    """The logical axes of every leaf :func:`init_norm` makes (replicated)."""
+    return {"scale": (None,)} if kind == "rmsnorm" else {"scale": (None,), "bias": (None,)}
+
+
 def init_norm(d, kind: str = "rmsnorm", device="cuda"):
     if kind == "rmsnorm":
         return {"scale": torch.zeros(d, dtype=torch.float32, device=device)}
@@ -155,12 +162,31 @@ def sinusoidal_pos(seq_len: int, d: int, device="cuda") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: the logical axes of :func:`init_mlp`'s leaves (the reference's ``Px``)
+MLP_AXES = {"wi": ("embed", "ff"), "wg": ("embed", "ff"), "wo": ("ff", "embed")}
+
+
 def init_mlp(gen, d, f, dtype=torch.bfloat16, device="cuda"):
     return {
         "wi": dense_init(gen, (d, f), 0, dtype, device),
         "wg": dense_init(gen, (d, f), 0, dtype, device),
         "wo": dense_init(gen, (f, d), 0, dtype, device),
     }
+
+
+def apply_mlp_tp(p, x, act: str, tp, f: int):
+    """:func:`apply_mlp` under a model group ``tp``: column-parallel
+    ``wi``/``wg`` and row-parallel ``wo`` over ``ff`` (width ``f``), one
+    reduce; where the group does not split ``ff`` every rank computes the
+    whole MLP, as the reference replicates it."""
+    d = x.shape[-1]
+    shapes = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
+    if not tp.splits(f):
+        return apply_mlp({k: tp.take(v, MLP_AXES[k], shapes[k], None, partial=False)
+                          for k, v in p.items()}, x, act)
+    local = {k: tp.take(v, MLP_AXES[k], shapes[k], 0 if k == "wo" else 1)
+             for k, v in p.items()}
+    return tp.reduce(apply_mlp(local, tp.copy(x), act))
 
 
 def apply_mlp(p, x, act: str = "silu"):

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import apply_norm, dense_init, init_norm, normal_init, norm_shapes
+from repro_torch.models.common import (apply_norm, dense_init, init_norm, norm_axes, norm_shapes,
+                                       normal_init)
 
 CONV_W = 4
 
@@ -57,6 +58,13 @@ def param_shapes(cfg) -> dict:
             "conv_w": (CONV_W, di + 2 * n), "conv_b": (di + 2 * n,), "a_log": (h,),
             "dt_bias": (h,), "d_skip": (h,), "out_norm": norm_shapes(di, cfg.norm),
             "out_proj": (di, d)}
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_mamba2` makes."""
+    return {"ln": norm_axes(cfg.norm), "in_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+            "conv_b": ("ff",), "a_log": (None,), "dt_bias": (None,), "d_skip": (None,),
+            "out_norm": norm_axes(cfg.norm), "out_proj": ("ff", "embed")}
 
 
 def _split(cfg, u):

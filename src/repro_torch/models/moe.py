@@ -74,6 +74,11 @@ def moe_param_shapes(cfg) -> dict:
     return {"router": (d, e), "wi": (e, d, f), "wg": (e, d, f), "wo": (e, f, d)}
 
 
+#: the logical axes of :func:`init_moe`'s leaves
+MOE_AXES = {"router": ("embed", "experts"), "wi": ("experts", "embed", "ff"),
+            "wg": ("experts", "embed", "ff"), "wo": ("experts", "ff", "embed")}
+
+
 def _router_probs(router_w, xt, e_real: int):
     """Masked router softmax in float32 (padding experts get -1e30 logits)."""
     e_pad = router_w.shape[-1]
@@ -116,7 +121,7 @@ def combine_in_order(values, index, n: int, k: int):
     return out
 
 
-def apply_moe(p, x, cfg, capacity_factor: float | None = None, *, dp=None, ep=None):
+def apply_moe(p, x, cfg, capacity_factor: float | None = None, *, dp=None, ep=None, tp=None):
     """x: [B, S, d] → ([B, S, d], aux dict). The reference's selector: the
     expert-parallel path when the config asks for it (``moe.impl ==
     "a2a"``) and there is an expert group ``ep`` (``p`` and ``x`` are then
@@ -125,11 +130,12 @@ def apply_moe(p, x, cfg, capacity_factor: float | None = None, *, dp=None, ep=No
     The reference takes the a2a path only when its expert axis divides the
     sequence; a shard here is already the sequence split over ``ep``, and a
     one-position step (decode, where the reference's S = 1 divides no expert
-    axis above 1) takes the GSPMD path."""
+    axis above 1) takes the GSPMD path, over the model group ``tp`` when
+    given."""
     x0 = x[0] if isinstance(x, (list, tuple)) else x
     if cfg.moe.impl == "a2a" and ep is not None and (x0.shape[1] > 1 or ep.size == 1):
         return apply_moe_a2a(p, x, cfg, ep, capacity_factor, dp=dp)
-    return apply_moe_gspmd(p, x, cfg, capacity_factor, group=dp)
+    return apply_moe_gspmd(p, x, cfg, capacity_factor, group=dp, tp=tp)
 
 
 def _true_div(num: torch.Tensor, den: int) -> torch.Tensor:
@@ -145,6 +151,29 @@ def _expert_ffn(x_e, p):
     return torch.bmm(h, p["wo"])
 
 
+def _experts_tp(x_e, p, cfg, tp):
+    """The experts' products on the buckets ``x_e`` [E, C, d] (the same on
+    every model rank) under the model group ``tp``. Where the group splits
+    the padded experts, each rank multiplies its experts' buckets and an
+    all-gather returns every bucket (the combine then runs as on one
+    device); where it splits each expert's ``ff`` instead, each rank
+    computes its part of every product and one reduce adds them; otherwise
+    every rank multiplies every bucket."""
+    e, _, d = x_e.shape
+    f = cfg.d_ff
+    shapes = {"wi": (e, d, f), "wg": (e, d, f), "wo": (e, f, d)}
+    w = {k: p[k] for k in shapes}
+    if tp.splits(e):
+        local = {k: tp.take(v, MOE_AXES[k], shapes[k], 0) for k, v in w.items()}
+        return tp.gather_dim(_expert_ffn(tp.scatter(x_e, 0), local), 0)
+    if tp.splits(f):
+        local = {k: tp.take(v, MOE_AXES[k], shapes[k], 1 if k == "wo" else 2)
+                 for k, v in w.items()}
+        return tp.reduce(_expert_ffn(tp.copy(x_e), local))
+    whole = {k: tp.take(v, MOE_AXES[k], shapes[k], None, partial=False) for k, v in w.items()}
+    return _expert_ffn(x_e, whole)
+
+
 def _top1_counts(probs):
     """Tokens whose largest router probability is each expert's: [E] int64."""
     e_pad = probs.shape[-1]
@@ -157,18 +186,28 @@ def _aux_from_counts(counts, n: int, probs, e_real: int):
     return e_real * torch.sum(_true_div(counts, n) * probs.mean(dim=0))
 
 
-def apply_moe_gspmd(p, x, cfg, capacity_factor: float | None = None, group=None):
+def apply_moe_gspmd(p, x, cfg, capacity_factor: float | None = None, group=None, tp=None,
+                    experts=None):
     """x: [B, S, d] → ([B, S, d], {"moe_aux", "moe_drop_frac"}). ``group``:
     a data-parallel group over which ``x`` is this rank's part of the global
     tokens; the block then gives the global step's capacity, slots and drop
     fraction and this rank's term of its load-balance loss (the module's
     docstring). Every rank issues the same collectives in the same order
-    (the block runs again under remat)."""
+    (the block runs again under remat). ``tp``: the model group; ``p`` is
+    then this model rank's view of the stored leaves. Routing, capacity,
+    slots and the load-balance loss are computed alike on every model rank,
+    the experts' products are split (:func:`_experts_tp`). ``experts``:
+    ``(x_e [E, C, d], p) -> y_e``, the experts' products on the buckets, in
+    place of every bucket multiplied here (``models/tp_ranks.py`` runs a
+    model group's ranks through it in one process)."""
     ranks = 1 if group is None else group.size
     b, s, d = x.shape
     n_l = b * s
     n = n_l * ranks  # the global token count
     e_real = cfg.moe.num_experts
+    if tp is not None:  # the router whole on every model rank
+        p = dict(p, router=tp.take(p["router"], MOE_AXES["router"],
+                                   (d, cfg.moe.experts_padded(EP)), None, partial=False))
     e_pad = p["router"].shape[-1]
     k = cfg.moe.top_k
     cf = capacity_factor or cfg.moe.capacity_factor
@@ -207,7 +246,9 @@ def apply_moe_gspmd(p, x, cfg, capacity_factor: float | None = None, group=None)
     x_e = x_e[:-1].view(e_pad, cap_l, d)
 
     # ---- expert computation ----------------------------------------------
-    y_e = _expert_ffn(x_e, p)
+    if experts is None:
+        experts = _expert_ffn if tp is None else lambda x_, p_: _experts_tp(x_, p_, cfg, tp)
+    y_e = experts(x_e, p)
 
     # ---- combine back to token order, in a fixed order --------------------
     # clamped gather and a select (not a multiply): a dropped record adds an

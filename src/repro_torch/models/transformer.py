@@ -17,8 +17,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import (apply_mlp, apply_norm, embed_init, init_mlp, init_norm,
-                                       norm_shapes, remat_call)
+from repro_torch.models.common import (MLP_AXES, apply_mlp, apply_mlp_tp, apply_norm, embed_init,
+                                       init_mlp, init_norm, norm_axes, norm_shapes, remat_call)
 
 
 def init_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
@@ -34,20 +34,24 @@ def init_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def _ffn(p, h, cfg, dp=None):
+def _ffn(p, h, cfg, dp=None, tp=None):
     """The block's MoE or MLP half: (y, aux); ``dp``: the MoE block's
-    data-parallel group (``models/moe.py::apply_moe``)."""
+    data-parallel group (``models/moe.py::apply_moe``); ``tp``: the model
+    group (tensor parallelism)."""
     if "moe" in p:
-        return moe_lib.apply_moe(p["moe"], h, cfg, dp=dp)
+        return moe_lib.apply_moe(p["moe"], h, cfg, dp=dp, tp=tp)
+    if tp is not None:
+        return apply_mlp_tp(p["mlp"], h, cfg.act, tp, cfg.d_ff), {}
     return apply_mlp(p["mlp"], h, cfg.act), {}
 
 
-def apply_block(p, x, cfg, *, window=None, dp=None):
-    """Train/prefill block: pre-norm attention + (MoE|MLP), residual."""
+def apply_block(p, x, cfg, *, window=None, dp=None, tp=None):
+    """Train/prefill block: pre-norm attention + (MoE|MLP), residual.
+    ``tp``: the model group, over which attention, MLP and MoE split."""
     h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    x = x + attn.attention(p["attn"], h, cfg, window=window)
+    x = x + attn.attention(p["attn"], h, cfg, window=window, tp=tp)
     h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    y, aux = _ffn(p, h, cfg, dp)
+    y, aux = _ffn(p, h, cfg, dp, tp)
     return x + y, aux
 
 
@@ -76,12 +80,9 @@ def init_lm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
 
 def block_shapes(cfg) -> dict:
     """The shape of every leaf :func:`init_block` makes."""
-    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    d = cfg.d_model
     norm = norm_shapes(d, cfg.norm)
-    att = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d)}
-    if cfg.qkv_bias:
-        att.update(bq=(h, hd), bk=(k, hd), bv=(k, hd))
-    block = {"ln1": norm, "attn": att, "ln2": norm}
+    block = {"ln1": norm, "attn": attn.attention_shapes(cfg, cfg.qkv_bias), "ln2": norm}
     if cfg.moe is not None:
         block["moe"] = moe_lib.moe_param_shapes(cfg)
     else:
@@ -99,38 +100,105 @@ def param_shapes(cfg) -> dict:
     return out
 
 
+def block_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_block` makes."""
+    norm = norm_axes(cfg.norm)
+    block = {"ln1": norm, "attn": attn.attention_axes(cfg.qkv_bias), "ln2": norm}
+    if cfg.moe is not None:
+        block["moe"] = dict(moe_lib.MOE_AXES)
+    else:
+        block["mlp"] = dict(MLP_AXES)
+    return block
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_lm` makes, in the same tree."""
+    out = {"embed": ("vocab", "embed"), "ln_f": norm_axes(cfg.norm)}
+    out.update({f"layer_{i}": block_axes(cfg) for i in range(cfg.n_layers)})
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("vocab", "embed")
+    return out
+
+
 def _window(cfg, i: int):
     return cfg.swa_window  # uniform SWA (danube); None = full attention
 
 
-def embed_tokens(params, tokens, cfg):
-    h = params["embed"][tokens]
+#: the logical axes of the embedding and of an untied head
+TABLE_AXES = ("vocab", "embed")
+
+
+def embed_part(table, tokens, start: int):
+    """A vocab part's lookup: the rows of the tokens in ``[start, start +
+    len(table))``, zeros for the others."""
+    n = table.shape[0]
+    local = tokens - start
+    hit = ((local >= 0) & (local < n))[..., None]
+    rows = table[torch.clamp(local, 0, n - 1)]
+    return torch.where(hit, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def _table(params, key: str, cfg, tp):
+    """The embedding (or head) as this model rank reads it: its vocab part
+    where ``tp`` splits the vocab, else the whole table."""
+    shape = (cfg.vocab, cfg.d_model)
+    if tp.splits(cfg.vocab):
+        return tp.take(params[key], TABLE_AXES, shape, 0)
+    return tp.take(params[key], TABLE_AXES, shape, None, partial=False)
+
+
+def embed_tokens(params, tokens, cfg, tp=None):
+    """The token embeddings; under a model group ``tp`` that splits the
+    vocab, each rank looks up its part and one reduce adds them."""
+    if tp is None:
+        h = params["embed"][tokens]
+    elif tp.splits(cfg.vocab):
+        start = tp.part(cfg.vocab)[0]
+        h = tp.reduce(embed_part(_table(params, "embed", cfg, tp), tokens, start))
+    else:
+        h = _table(params, "embed", cfg, tp)[tokens]
+    return scale_embedding(h, cfg)
+
+
+def scale_embedding(h, cfg):
+    """√d_model times the embeddings where the config asks for it (gemma)."""
     if cfg.embed_scale:
         scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
         h = h * scale.to(h.dtype).to(h.device)
     return h
 
 
-def unembed(params, h, cfg):
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+def unembed(params, h, cfg, tp=None):
+    """Logits in float32; under a model group ``tp`` that splits the vocab,
+    this rank's vocab part ``[..., V/M]`` (the loss is then
+    ``losses.causal_lm_loss_parallel``)."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    if tp is None:
+        table = params[key]
+    else:
+        table = _table(params, key, cfg, tp)
+        if tp.splits(cfg.vocab):
+            h = tp.copy(h)
     return torch.matmul(h, table.t()).float()  # the product in the working type, then f32
 
 
 def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False,
-            remat: bool = False, dp=None):
+            remat: bool = False, dp=None, tp=None):
     """Token logits for train/prefill; ``last_only`` keeps the last position.
     ``prefix_emb`` (the VLM's projected image): embeddings put before the
     token embeddings in sequence order, cast to their type. The aux:
     ``{"moe_aux": mean over layers}`` for an MoE model, else ``{}``.
     ``remat``: each block under ``torch.utils.checkpoint``. ``dp``: the
     data-parallel group, passed to every MoE block as the reference passes
-    its ``rules``."""
-    h = embed_tokens(params, tokens, cfg)
+    its ``rules``. ``tp``: the model group (``dist/tensor_parallel.py``);
+    ``params`` is then this rank's view of the stored leaves, and the
+    logits are its vocab part where the group splits the vocab."""
+    h = embed_tokens(params, tokens, cfg, tp)
     if prefix_emb is not None:
         h = torch.cat([prefix_emb.to(h.dtype), h], dim=1)
     aux_tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        blk = functools.partial(apply_block, cfg=cfg, window=_window(cfg, i), dp=dp)
+        blk = functools.partial(apply_block, cfg=cfg, window=_window(cfg, i), dp=dp, tp=tp)
         h, aux = remat_call(blk, remat, params[f"layer_{i}"], h)
         if "moe_aux" in aux:
             aux_tot = aux_tot + aux["moe_aux"]
@@ -138,7 +206,7 @@ def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False,
     if last_only:  # prefill: only the last position's logits are served
         h = h[:, -1:]
     out = {"moe_aux": aux_tot / max(cfg.n_layers, 1)} if cfg.moe is not None else {}
-    return unembed(params, h, cfg), out
+    return unembed(params, h, cfg, tp), out
 
 
 def decode_step(params, token, cache, pos, cfg):

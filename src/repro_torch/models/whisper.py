@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
-                                       norm_shapes, sinusoidal_pos)
+                                       norm_axes, norm_shapes, sinusoidal_pos)
 
 
 def init_plain_mlp(gen, d, f, dtype=torch.bfloat16, device="cuda"):
@@ -70,12 +70,24 @@ def init_whisper(gen, cfg, dtype=torch.bfloat16, device="cuda"):
 
 def param_shapes(cfg) -> dict:
     """The shape of every leaf :func:`init_whisper` makes."""
-    d, h, k, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     norm = norm_shapes(d, "layernorm")
-    att = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d),
-           "bq": (h, hd), "bk": (k, hd), "bv": (k, hd)}
+    att = attn.attention_shapes(cfg, True)
     mlp = {"wi": (d, f), "wo": (f, d)}
     out = {"embed": (cfg.vocab, d), "ln_enc": norm, "ln_dec": norm}
+    out.update({f"enc_{i}": {"ln1": norm, "attn": att, "ln2": norm, "mlp": mlp}
+                for i in range(cfg.enc_layers)})
+    out.update({f"dec_{i}": {"ln1": norm, "self_attn": att, "ln2": norm, "cross_attn": att,
+                             "ln3": norm, "mlp": mlp} for i in range(cfg.n_layers)})
+    return out
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_whisper` makes."""
+    norm = norm_axes("layernorm")
+    att = attn.attention_axes(True)
+    mlp = {"wi": ("embed", "ff"), "wo": ("ff", "embed")}
+    out = {"embed": ("vocab", "embed"), "ln_enc": norm, "ln_dec": norm}
     out.update({f"enc_{i}": {"ln1": norm, "attn": att, "ln2": norm, "mlp": mlp}
                 for i in range(cfg.enc_layers)})
     out.update({f"dec_{i}": {"ln1": norm, "self_attn": att, "ln2": norm, "cross_attn": att,

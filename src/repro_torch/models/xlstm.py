@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
-                                       normal_init, norm_shapes, remat_call)
+                                       norm_axes, normal_init, norm_shapes, remat_call)
 
 M_INIT = -30.0
 
@@ -65,6 +65,13 @@ def mlstm_shapes(cfg) -> dict:
     return {"ln": norm_shapes(d, cfg.norm), "up_x": (d, di), "up_z": (d, di),
             "wq": (di, di), "wk": (di, di), "wv": (di, di), "w_if": (di, 2 * h),
             "b_if": (2 * h,), "out_norm": norm_shapes(di, cfg.norm), "down": (di, d)}
+
+
+def mlstm_axes(cfg) -> dict:
+    norm = norm_axes(cfg.norm)
+    return {"ln": norm, "up_x": ("embed", "ff"), "up_z": ("embed", "ff"), "wq": ("ff", None),
+            "wk": ("ff", None), "wv": ("ff", None), "w_if": ("ff", None), "b_if": (None,),
+            "out_norm": norm, "down": ("ff", "embed")}
 
 
 def _mlstm_qkvg(p, u, cfg):
@@ -213,6 +220,13 @@ def slstm_shapes(cfg) -> dict:
             "ffn_wo": (f, d)}
 
 
+def slstm_axes(cfg) -> dict:
+    norm = norm_axes(cfg.norm)
+    return {"ln": norm, "w_in": ("embed", None, "heads", None), "r": (None, "heads", None, None),
+            "b": (None, "heads", None), "out_norm": norm, "ln_ffn": norm,
+            "ffn_wi": ("embed", "ff"), "ffn_wg": ("embed", "ff"), "ffn_wo": ("ff", "embed")}
+
+
 def _slstm_cell(r, gin, st):
     """One step. gin: [B,4,H,dh] pre-activations; st = (c, n, hprev, m)."""
     c, n, hprev, m = st
@@ -300,6 +314,14 @@ def param_shapes(cfg) -> dict:
     """The shape of every leaf :func:`init_xlstm_lm` makes."""
     out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": norm_shapes(cfg.d_model, cfg.norm)}
     out.update({f"layer_{i}": mlstm_shapes(cfg) if is_mlstm(i) else slstm_shapes(cfg)
+                for i in range(cfg.n_layers)})
+    return out
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_xlstm_lm` makes."""
+    out = {"embed": ("vocab", "embed"), "ln_f": norm_axes(cfg.norm)}
+    out.update({f"layer_{i}": mlstm_axes(cfg) if is_mlstm(i) else slstm_axes(cfg)
                 for i in range(cfg.n_layers)})
     return out
 

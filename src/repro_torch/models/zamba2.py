@@ -15,7 +15,8 @@ import functools
 import torch
 
 from repro_torch.models import mamba2, transformer
-from repro_torch.models.common import apply_norm, embed_init, init_norm, norm_shapes, remat_call
+from repro_torch.models.common import (apply_norm, embed_init, init_norm, norm_axes, norm_shapes,
+                                       remat_call)
 
 
 def attn_sites(cfg) -> list[int]:
@@ -39,6 +40,14 @@ def param_shapes(cfg) -> dict:
     out = {"embed": (cfg.vocab, cfg.d_model), "ln_f": norm_shapes(cfg.d_model, cfg.norm),
            "shared": transformer.block_shapes(cfg)}
     out.update({f"ssm_{i}": mamba2.param_shapes(cfg) for i in range(cfg.n_layers)})
+    return out
+
+
+def param_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_zamba2` makes."""
+    out = {"embed": ("vocab", "embed"), "ln_f": norm_axes(cfg.norm),
+           "shared": transformer.block_axes(cfg)}
+    out.update({f"ssm_{i}": mamba2.param_axes(cfg) for i in range(cfg.n_layers)})
     return out
 
 

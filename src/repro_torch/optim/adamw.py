@@ -20,6 +20,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.dist.compress import tree_leaves, tree_map, tree_unflatten
+from repro_torch.dist.data_parallel import add_in_order
 
 
 class AdamWState(NamedTuple):
@@ -47,6 +48,19 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def sharded_global_norm(shards, owners, group) -> torch.Tensor:
+    """:func:`global_norm` of a tree stored in shards over the ranks of
+    ``group`` (a :class:`~repro_torch.dist.data_parallel.DataParallel`):
+    each rank's sum of squares of every shard it is the first to hold
+    (``owners``, per leaf), gathered, added over the ranks in rank order
+    leaf by leaf, then over the leaves. Every rank gets the same bits."""
+    leaves = tree_leaves(shards)
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    sq = torch.stack([torch.sum(torch.square(x.float())) if own else zero
+                      for x, own in zip(leaves, owners)])
+    return torch.sqrt(torch.sum(add_in_order(group.gather(sq).unbind(0))))
+
+
 def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
                     min_ratio: float = 0.1) -> torch.Tensor:
     """Linear warm-up to ``base_lr``, then cosine decay to ``min_ratio·base_lr``;
@@ -62,9 +76,14 @@ def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: float = 1.0):
-    """One AdamW step. Returns ``(new_params, new_state, {"grad_norm", "lr"})``."""
-    gnorm = global_norm(grads)
+                 eps: float = 1e-8, weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 gnorm=None):
+    """One AdamW step. Returns ``(new_params, new_state, {"grad_norm", "lr"})``.
+    Elementwise but for the clip, so it runs alike on shards: ``gnorm`` is
+    then the global norm of the whole gradient (:func:`sharded_global_norm`),
+    else :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if grad_clip > 0:
         clipped = _f32(grad_clip, gnorm) / torch.maximum(gnorm, _f32(1e-9, gnorm))
         scale = torch.where(gnorm > grad_clip, clipped, _f32(1.0, gnorm))

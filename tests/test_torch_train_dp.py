@@ -27,7 +27,8 @@ start from the reference's weights (``lm_params_from_numpy``).
 * A preemption signal on one of 2 ranks stops both at the same step; the
   run resumes from rank 0's checkpoint, equal to the uninterrupted one.
 * The launcher itself under ``torchrun`` and under the bootstrap's flags,
-  2 processes each; ``--want-model 2`` refused.
+  2 processes each; ``--want-model 2`` at a world of one is the
+  ``--want-model 1`` run (tensor parallelism: ``test_torch_train_tp.py``).
 """
 
 from __future__ import annotations
@@ -255,9 +256,17 @@ def test_a_signal_on_one_rank_stops_every_rank_and_the_run_resumes(runs):
     assert sorted(os.listdir(runs.tmp / "b")) == ["step_0000000002", "step_0000000004"]
 
 
-def test_tensor_parallelism_is_refused():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1"):
-        train.train(train.parse_args(chk.train_argv(DANUBE, 1) + ["--want-model", "2"]))
+def test_want_model_2_at_a_world_of_one_is_the_want_model_1_run():
+    """``plan_mesh(1, want_model=2)`` is ``(data 1, model 1)``: the run is
+    the ``--want-model 1`` run, bit for bit."""
+    weights = lm_params_from_numpy(ref_weights()[DANUBE], get_smoke_config(DANUBE), "cpu")
+    one = train.train(train.parse_args(chk.train_argv(DANUBE, 1)), weights)
+    two = train.train(train.parse_args(chk.train_argv(DANUBE, 1) + ["--want-model", "2"]),
+                      weights)
+    assert two.result["mesh"] == one.result["mesh"] == {"data": 1, "model": 1}
+    assert two.losses == one.losses
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(two.params),
+                                                 tree_leaves(one.params)))
 
 
 # ---------------------------------------------------------------------------

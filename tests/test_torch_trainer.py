@@ -97,7 +97,7 @@ def test_trainer_main_prints_the_reference_keys(capsys):
     assert json.loads(line) == res
     assert {"arch", "steps", "wall_s", "loss_first", "loss_last", "stragglers",
             "wire_bytes_per_step", "wire_bytes_expected", "device", "p50_step_s",
-            "peak_memory_bytes", "world"} == set(res)
+            "peak_memory_bytes", "world", "mesh", "stored_bytes_per_rank"} == set(res)
     assert np.isfinite(res["loss_last"]) and res["peak_memory_bytes"] is None
 
 

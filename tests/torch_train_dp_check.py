@@ -224,7 +224,12 @@ def spawn(world: int, case, **kw) -> list:
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="torch-train-dp-") as tmp:
-        mp.spawn(_child, args=(world, case, kw, tmp), nprocs=world, join=True)
+        # the arguments go through a file: a child that dies before reading a
+        # large launch payload would leave the parent blocked on its pipe,
+        # where a small one lets the join report the dead child
+        with open(os.path.join(tmp, "kw.pkl"), "wb") as f:
+            pickle.dump(kw, f)
+        mp.spawn(_child, args=(world, case, tmp), nprocs=world, join=True)
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -232,10 +237,12 @@ def spawn(world: int, case, **kw) -> list:
     return out
 
 
-def _child(rank: int, world: int, case: str, kw: dict, tmp: str) -> None:
+def _child(rank: int, world: int, case, tmp: str) -> None:
     import torch
     import torch.distributed as dist
 
+    with open(os.path.join(tmp, "kw.pkl"), "rb") as f:
+        kw = pickle.load(f)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=world)
