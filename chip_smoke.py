@@ -100,7 +100,7 @@ card and CPU runs. Phases, one line each or a few:
      MoE is plain jnp): (a) moonshot-v1-16b-a3b at full width, 2 layers,
      float32, TF32 off, capacity factor 16: forward on the card against the
      CPU, decode against forward (rtol and atol 1e-3), no record dropped on
-     either side; (b) granite-moe-3b-a800m, 16 of its 32 bfloat16 layers (the
+     either side; (b) granite-moe-3b-a800m, 8 of its 32 bfloat16 layers (the
      depth cut for the time limit), 48 padded experts, initialised on the card from a seed, 8 requests through
      ``BatchServer`` as in 13b, twice, the same tokens; init time, median
      decode step against its bytes bound and against the bytes of the experts
@@ -114,11 +114,11 @@ card and CPU runs. Phases, one line each or a few:
      zamba2-7b at full width, 6 layers (the shared attention block at
      i = 5), float32, TF32 off: forward on the card against the CPU, decode
      against forward (rtol and atol 1e-3), the forward at SSM chunk 8
-     against one chunk of 16 (the carried state); (b) zamba2-7b, 27 of its
-     81 layers in bfloat16 (the depth cut for the time limit; 4 shared-block
+     against one chunk of 16 (the carried state); (b) zamba2-7b, 14 of its
+     81 layers in bfloat16 (the depth cut for the time limit; 2 shared-block
      sites), served as in 13b, twice, the same tokens; init time,
      median decode step against its bytes bound (parameters, the SSM and
-     conv states read and written, the 13 sites' KV caches), tokens/s, peak
+     conv states read and written, the sites' KV caches), tokens/s, peak
      memory, three profiled steps, the hand kernels' launches (none); (c)
      xlstm-350m at full width and depth: float32 forward on the card against
      the CPU (1e-3), decode against forward (the reference's 2e-3); then in
@@ -134,7 +134,8 @@ card and CPU runs. Phases, one line each or a few:
      decoder layers, float32, TF32 off: the forward on the card against the
      CPU, and the decode step with the encoder's cross K/V in the cache
      (``whisper.fill_cross_cache``) against the forward, position by
-     position (rtol and atol 1e-3); (b) all 32 + 32 bfloat16 layers: encode
+     position (rtol and atol 1e-3); (b) 16 + 16 of its 32 + 32 bfloat16
+     layers (the depth cut for the time limit): encode
      of 8 x 1500 frames, its median of 5 against the FLOP bound and one
      profiled call; the cross K/V projection; prefill_step; 8 requests
      through ``BatchServer`` as in 13b, twice, the same tokens (the cross
@@ -182,12 +183,23 @@ card and CPU runs. Phases, one line each or a few:
      (forward and the gradients of sum(y^2), rtol 2e-4, atol 2e-5), with
      each one's forward + backward device time; (c) danube's full tree
      sharded by the (data 2, model 4) plan for each of its 8 ranks and put
-     back together bit for bit, each rank's bytes against the table's.
+     back together bit for bit, each rank's bytes against the table's;
+  20. tensor-parallel compute of the other families (no hand kernel on it):
+     (a) each new block's ranks at m = 2 and 4 in this process
+     (``models/tp_ranks.py``: zamba2-7b's Mamba2 block over 2 chunks,
+     xlstm-350m's mLSTM and sLSTM blocks, whisper-large-v3's encoder block at
+     1500 frames and its decoder block with cross attention), float32,
+     against the unsplit block within 19b's tolerance, with each one's
+     forward + backward device time; (b) ``--want-model 2`` in an NCCL group
+     of one equal to the ``--want-model 1`` run bit for bit, zamba2-7b (6
+     bfloat16 layers) and xlstm-350m (4), batch 8 x 128, 3 steps; (c)
+     zamba2-7b's full tree by the (data 2, model 4) plan: each model rank's
+     view bytes against the whole-leaf views, the transient gathers apart.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c and 19a), and as the
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a and 20b), and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no
 result line, when CUDA is unavailable, when the package is missing, or when
 any phase fails. Imports nothing of the JAX package.
@@ -2369,10 +2381,10 @@ def run(tmp: str) -> int:
         del model, params, cpu_params, fwd, want, got, cache, rec_card, rec_cpu, rec_dec
         torch.cuda.empty_cache()
 
-        # (b) service: granite-moe-3b-a800m, 16 of its 32 bfloat16 layers (the
+        # (b) service: granite-moe-3b-a800m, 8 of its 32 bfloat16 layers (the
         # depth cut for the time limit), through BatchServer
         full = get_config("granite_moe_3b_a800m")
-        served = dataclasses.replace(full, n_layers=16)
+        served = dataclasses.replace(full, n_layers=8)
         slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -2553,10 +2565,10 @@ def run(tmp: str) -> int:
         del model, params, fwd, chunked
         torch.cuda.empty_cache()
 
-        # (b) zamba2-7b served: 27 of the 81 layers (the shared block at 4 of
+        # (b) zamba2-7b served: 14 of the 81 layers (the shared block at 2 of
         # its 13 sites), bfloat16; the depth cut to keep the script inside its
         # time limit
-        full = dataclasses.replace(full, n_layers=27)
+        full = dataclasses.replace(full, n_layers=14)
         sites = len(zamba2.attn_sites(full))
         ctx["hybrid_counts"] = service("15b", full, lambda c: (
             tree_bytes(c, lambda k: k.startswith("ssm_")),
@@ -2690,7 +2702,9 @@ def run(tmp: str) -> int:
         del model, params, fwd, enc, cache
         torch.cuda.empty_cache()
 
-        # (b) all 32 + 32 layers, bfloat16
+        # (b) 16 + 16 of the 32 + 32 layers, bfloat16 (the depth cut for the
+        # time limit)
+        full = dataclasses.replace(full, enc_layers=16, n_layers=16)
         slots, max_len, prompt_len, gen_len, nreq = 8, 128, 32, 32, 8
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -3362,6 +3376,214 @@ def run(tmp: str) -> int:
 
     smoke.phase("19 tensor parallelism and sharded storage", phase_train_tp)
 
+    def phase_train_tp_families():
+        import torch.distributed as tdist
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.dist.compress import tree_leaves
+        from repro_torch.dist.fsdp import Sharded
+        from repro_torch.dist.sharding import make_rules
+        from repro_torch.launch import summarize as launch
+        from repro_torch.launch import train as train_lib
+        from repro_torch.models import attention as attn
+        from repro_torch.models import mamba2, tp_ranks, whisper, xlstm
+        from repro_torch.models.api import build_model, param_axes, param_shapes
+        from repro_torch.runtime import plan_mesh
+        card = nvidia_smi("name,power.limit")
+        errors, times, parts = [], {}, []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+
+        # (a) each new block's ranks at full width in this process
+        # (models/tp_ranks.py) against the unsplit block, float32: forward
+        # and the gradients of sum(y^2) within 19b's tolerance (rtol 2e-4,
+        # atol 2e-5; a gradient's atol of its leaf's largest, attention's
+        # bk, whose gradient is 0 in exact arithmetic, of the block's
+        # largest). A chunked block's atols are at least 4 times its own
+        # float32 noise, the unsplit block at half the chunk against it (the
+        # same sums in another order): Mamba2's a_log and dt_bias gradients
+        # add every position with cancellation (two chunkings part by about
+        # 1e-4 of their largest on the CPU), and the mLSTM's normaliser
+        # divides by |den|; on the card its split parts from the unsplit
+        # block by about twice that noise
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return {kk: leaves(v) for kk, v in tree.items()}
+            x = tree.detach().float().clone()
+            if x.numel() > 1 and float(x.std()) == 0.0:  # constant at init
+                x = x + 0.1 * torch.randn(x.shape, generator=gen, device=dev)
+            return x.requires_grad_(True)
+
+        def named(tree, prefix=""):
+            if isinstance(tree, dict):
+                return [t for kk, v in tree.items() for t in named(v, f"{prefix}/{kk}")]
+            return [(prefix, tree)]
+
+        def act(*shape):
+            return torch.randn(shape, generator=gen, device=dev).requires_grad_(True)
+
+        zamba = dataclasses.replace(get_config("zamba2_7b"), dtype="float32")
+        xl = dataclasses.replace(get_config("xlstm_350m"), dtype="float32")
+        wh = dataclasses.replace(get_config("whisper_large_v3"), dtype="float32")
+        x_z, x_m, x_s = act(1, 512, zamba.d_model), act(2, 256, xl.d_model), act(2, 64, xl.d_model)
+        x_e, x_d, enc = act(2, wh.enc_len, wh.d_model), act(2, 128, wh.d_model), act(
+            2, wh.enc_len, wh.d_model)
+        p_z = leaves(mamba2.init_mamba2(gen, zamba, torch.float32, dev))
+        p_m = leaves(xlstm.init_mlstm(gen, xl, torch.float32, dev))
+        p_s = leaves(xlstm.init_slstm(gen, xl, torch.float32, dev))
+        p_e = leaves(whisper.init_enc_block(gen, wh, torch.float32, dev))
+        p_d = leaves(whisper.init_dec_block(gen, wh, torch.float32, dev))
+        enc_l = whisper.block_layers(wh, None, causal=False)
+        dec_l = whisper.block_layers(wh, None, causal=True)
+        # name: (split(m), whole(), the whole block at half the chunk or
+        # None, inputs, leaves)
+        blocks = {
+            "zamba2-7b Mamba2 block (d 3584, 112 heads, x [1, 512, 3584]: 2 chunks)": (
+                lambda m: tp_ranks.mamba2_block(p_z, x_z, zamba, m),
+                lambda: mamba2.ssd_forward(p_z, x_z, zamba),
+                lambda: mamba2.ssd_forward(p_z, x_z, zamba, chunk=128), [x_z], p_z),
+            "xlstm-350m mLSTM block (d 1024, 4 heads, x [2, 256, 1024])": (
+                lambda m: tp_ranks.mlstm_block(p_m, x_m, xl, m),
+                lambda: xlstm.mlstm_forward(p_m, x_m, xl),
+                lambda: xlstm.mlstm_forward(p_m, x_m, xl, chunk=128), [x_m], p_m),
+            "xlstm-350m sLSTM block (4 heads, ff 2688, x [2, 64, 1024])": (
+                lambda m: tp_ranks.slstm_block(p_s, x_s, xl, m),
+                lambda: xlstm.slstm_forward(p_s, x_s, xl), None, [x_s], p_s),
+            "whisper-large-v3 encoder block (20 heads, ff 5120, x [2, 1500, 1280])": (
+                lambda m: tp_ranks.whisper_encoder_block(p_e, x_e, wh, m),
+                lambda: whisper.enc_block(p_e, x_e, enc_l[0], enc_l[2]), None, [x_e], p_e),
+            "whisper-large-v3 decoder block (x [2, 128, 1280], cross attention to 1500 "
+            "frames)": (
+                lambda m: tp_ranks.whisper_decoder_block(p_d, x_d, enc, wh, m),
+                lambda: whisper.dec_block(p_d, x_d, enc, *dec_l), None, [x_d, enc], p_d),
+        }
+
+        def fwd_bwd(fn, ls):
+            y = fn()
+            return y.detach(), torch.autograd.grad((y.float() ** 2).sum(), ls)
+
+        ops.reset_launch_counts()
+        for name, (split, whole, alt, inputs, p) in blocks.items():
+            names = [f"input{i}" for i in range(len(inputs))] + [nm for nm, _ in named(p)]
+            ls = list(inputs) + [t for _, t in named(p)]
+            y0, g0 = fwd_bwd(whole, ls)
+            top = max(float(b.abs().max()) for b in g0)
+            scale = [top if nm.endswith("/bk") else float(b.abs().max())
+                     for nm, b in zip(names, g0)]
+            y_atol = 2e-5
+            if alt is not None:  # the block's own float32 noise, 4 times, where larger
+                y_alt, g_alt = fwd_bwd(alt, ls)
+                noise = [float((a - b).abs().max()) for a, b in zip(g_alt, g0)]
+                log(f"20a {name}: the unsplit block at half the chunk against it, y "
+                    f"{float((y_alt - y0).abs().max()):.3g}, gradients of each leaf's largest "
+                    + ", ".join(f"{nm} {nz / float(b.abs().max()):.3g}"
+                                for nm, nz, b in zip(names, noise, g0)))
+                scale = [max(sc, 4 * nz / 2e-5) for sc, nz in zip(scale, noise)]
+                y_atol = max(y_atol, 4 * float((y_alt - y0).abs().max()))
+            times[name] = {"unsplit": time_cuda(torch, lambda: fwd_bwd(whole, ls), launches=2,
+                                                batches=3, warmup=1)}
+            for m in (2, 4):
+                y, g = fwd_bwd(lambda: split(m), ls)
+                y_err = float((y - y0).abs().max())
+                errs = [float((a - b).abs().max()) / sc for a, b, sc in zip(g, g0, scale)]
+                g_err = max(errs)
+                worst = names[errs.index(g_err)]
+                ok = torch.allclose(y, y0, rtol=2e-4, atol=y_atol) and all(
+                    torch.allclose(a, b, rtol=2e-4, atol=2e-5 * sc)
+                    for a, b, sc in zip(g, g0, scale))
+                times[name][f"m={m}"] = time_cuda(torch, lambda: fwd_bwd(lambda: split(m), ls),
+                                                  launches=2, batches=3, warmup=1)
+                parts.append(f"{name} m={m}: y max abs diff {y_err:.3g} (largest |y| "
+                             f"{float(y0.abs().max()):.3g}), gradients {g_err:.3g} of each "
+                             f"leaf's scale (worst {worst})")
+                if not ok:
+                    errors.append(f"20a: {name} at m={m} parts from the unsplit block")
+            del y0, g0
+        ctx["tp_block_counts"] = ops.launch_counts()
+        ms = {kk: {a: round(b, 3) for a, b in v.items()} for kk, v in times.items()}
+        log(f"[{card}] 20a the new tensor-parallel blocks' ranks in one process against the "
+            f"unsplit blocks, float32, TF32 off: {'; '.join(parts)}; forward + backward device "
+            f"ms {json.dumps(ms)}; launches of the hand kernels {ctx['tp_block_counts']}")
+        del blocks, p_z, p_m, p_s, p_e, p_d, x_z, x_m, x_s, x_e, x_d, enc
+        torch.cuda.empty_cache()
+
+        # (b) --want-model 2 in an NCCL group of one plans (1, 1): the
+        # --want-model 1 run bit for bit, zamba2-7b (6 layers: one shared-
+        # block site) and xlstm-350m (4 layers), full width, bfloat16
+        launch.init_distributed(dev)  # NCCL, a world of one
+        counts = {}
+        try:
+            for arch, n in (("zamba2_7b", 6), ("xlstm_350m", 4)):
+                cut = dataclasses.replace(get_config(arch), n_layers=n)
+                argv = ["--arch", arch, "--steps", "3", "--batch", "8", "--seq", "128",
+                        "--device", "cuda", "--log-every", "100"]
+                one = train_lib.train(train_lib.parse_args(argv), cfg=cut)
+                one_params = [x.clone() for x in tree_leaves(one.params)]
+                del one.params, one.opt, one.shards
+                torch.cuda.empty_cache()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                run_tp = train_lib.train(train_lib.parse_args(argv + ["--want-model", "2"]),
+                                         cfg=cut)
+                wall = time.perf_counter() - t0
+                counts[arch] = ops.launch_counts()
+                same = run_tp.losses == one.losses and all(
+                    torch.equal(a, b) for a, b in zip(tree_leaves(run_tp.params), one_params))
+                res = run_tp.result
+                log(f"[{card}] 20b {arch} full width, {n} bfloat16 layers, batch 8 x 128, 3 "
+                    f"steps through repro_torch.launch.train --want-model 2 in an NCCL group of "
+                    f"{res['world']} ({tdist.get_backend()}): mesh {res['mesh']}, {wall:.2f} s, "
+                    f"median step {res['p50_step_s']:.4f} s, peak {res['peak_memory_bytes']} "
+                    f"bytes; losses {[round(x, 6) for x in run_tp.losses]}; equal to the "
+                    f"--want-model 1 run bit for bit {same}; launches of the hand kernels "
+                    f"{counts[arch]}")
+                if not same or res["mesh"] != {"data": 1, "model": 1}:
+                    errors.append(f"20b: {arch} at --want-model 2 differs (mesh {res['mesh']})")
+                del run_tp, one_params, one
+                torch.cuda.empty_cache()
+        finally:
+            tdist.destroy_process_group()
+        ctx["tp_families_counts"] = {k: sum(c[k] for c in counts.values())
+                                     for k in next(iter(counts.values()))}
+
+        # (c) zamba2-7b's full tree by the (data 2, model 4) plan: the bytes
+        # of each model rank's views (its model part of every leaf, gathered
+        # over the data ranks and held for the step) against the whole-leaf
+        # views every model rank held before the blocks split; the transient
+        # whole leaves a step gathers one at a time, counted apart
+        full = get_config("zamba2_7b")
+        small = dataclasses.replace(get_smoke_config("zamba2_7b"), n_layers=full.n_layers,
+                                    attn_every=full.attn_every, dtype="bfloat16")
+        elem = [x.element_size() for x in tree_leaves(build_model(small, "cpu").init(0))]
+        shapes, axes = param_shapes(full), param_axes(full)
+        rules = make_rules(plan_mesh(8, global_batch=8, want_model=4), "train")
+        whole_bytes = None
+        views = []
+        for r in range(8):
+            lays = Sharded(rules, r, shapes, axes, None, None).layouts
+            views.append(sum(int(np.prod(lay.shape)) // lay.model_parts * e
+                             for lay, e in zip(lays, elem)))
+            whole_bytes = sum(int(np.prod(lay.shape)) * e for lay, e in zip(lays, elem))
+        d, di, h, _, n = mamba2.dims(full)
+        in_proj = d * (2 * di + 2 * n + h) * 2
+        qkv = 3 * d * full.n_heads * full.hd * 2
+        log(f"20c zamba2-7b's full tree ({whole_bytes} bytes) by the (data 2, model 4) plan, "
+            f"from the train table: each model rank's views {views} bytes "
+            f"({views[0] / whole_bytes:.4f} of the whole-leaf views every model rank held "
+            f"before); transient, one at a time: a Mamba2 block's in_proj gathered whole "
+            f"{in_proj} bytes (freed before its products), the shared block's wq/wk/wv "
+            f"gathered whole {qkv} bytes; views + one in_proj {views[0] + in_proj} bytes")
+        if len(set(views)) != 1 or not views[0] < whole_bytes / 3:
+            errors.append(f"20c: views {views} against {whole_bytes}")
+        for name in ("tp_block_counts", "tp_families_counts"):
+            if any(ctx.get(name, {}).values()):
+                errors.append(f"20: a hand kernel launched on the path: {ctx[name]}")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("20 tensor-parallel compute of the other families", phase_train_tp_families)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -3385,6 +3607,8 @@ def run(tmp: str) -> int:
         by_path["MoE training (granite, phase 18b)"] = ctx["moe_train_counts"][k]
         by_path["expert-parallel MoE block (phase 18c)"] = ctx["a2a_counts"][k]
         by_path["training at --want-model 2 (danube, phase 19a)"] = ctx["tp_counts"][k]
+        by_path["training at --want-model 2 (zamba2, xLSTM, phase 20b)"] = ctx[
+            "tp_families_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,24 @@
 #!/bin/bash
 # The trainer over NCCL ranks on the cards of one host, against one card:
-# h2o-danube-1.8b and granite-moe-3b-a800m at full width and depth, 3 steps
-# of batch 8 x 128, at --want-model 1, 2 and 4 over 4 ranks, and on one card.
-# Each run's log goes to OUT/nccl_<arch>_<ranks>_<want_model>.log (OUT: the
-# first argument, artifacts/train_ranks by default); the JSON line of each
-# run and its step lines are printed.
+# each model at full width and depth, 3 steps of batch 8 x 128, at
+# --want-model 1, 2 and 4 over 4 ranks, and on one card. The models are the
+# arguments after OUT (default: h2o-danube-1.8b, granite-moe-3b-a800m,
+# zamba2-7b, xlstm-350m). Each run's log goes to
+# OUT/nccl_<arch>_<ranks>_<want_model>.log (OUT: the first argument,
+# artifacts/train_ranks by default); the JSON line of each run and its step
+# lines are printed.
 #
-#   bash scripts/train_ranks_check.sh [OUT]    # needs 4 cards
+#   bash scripts/train_ranks_check.sh [OUT [ARCH...]]    # needs 4 cards
 set -u
 cd "$(dirname "$0")/.."
 out=${1:-artifacts/train_ranks}
+shift || true
+archs=${*:-h2o_danube_1_8b granite_moe_3b_a800m zamba2_7b xlstm_350m}
 export PYTHONPATH=src
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda, torch.cuda.device_count())'
 mkdir -p "$out"
-for arch in h2o_danube_1_8b granite_moe_3b_a800m; do
+for arch in $archs; do
   for n in 1 4; do
     for wm in 1 2 4; do
       if [ "$n" = 1 ] && [ "$wm" != 1 ]; then continue; fi

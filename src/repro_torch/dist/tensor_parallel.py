@@ -16,12 +16,18 @@ written out, Megatron's way:
     sum over the ranks of that part (a reduce-scatter: the ranks consumed
     different parts);
   * :meth:`TensorParallel.scatter`: this rank's part forward, the parts
-    gathered backward.
+    gathered backward;
+  * :meth:`TensorParallel.all_reduce`: the sum over the group forward and
+    backward (a statistic of a split dimension that every rank then
+    consumes differently, such as an RMSNorm's sum of squares).
 
 Every sum adds the ranks' values in rank order (an all-gather, then the
 adds), so every rank holds the same bits, run after run. :meth:`take` turns
 a leaf as the rule table stores it into what a rank's part of a layer
-reads. A group of one does no collective work.
+reads, :meth:`take_index` reads it at chosen indices (columns the table's
+contiguous split cuts across), and :meth:`read` does either for each leaf of
+a block by a map the block's module gives (``models/tp_ranks.py`` reads the
+same maps off whole leaves). A group of one does no collective work.
 """
 
 from __future__ import annotations
@@ -69,6 +75,12 @@ class TensorParallel(DataParallel):
     def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return x if self.size == 1 else _Scatter.apply(x, self, dim)
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks, added in rank order; its gradient is
+        summed over the ranks too, since each rank consumes the sum in its
+        own part of a layer."""
+        return self.reduce(self.copy(x))
+
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's part along ``dim`` of the sum over the ranks of ``x``,
         added in rank order (no autograd)."""
@@ -103,6 +115,44 @@ class TensorParallel(DataParallel):
             return whole
         start, stop = self.part(shape[compute_dim])
         return whole.narrow(compute_dim, start, stop - start)
+
+    def whole(self, p: dict, axes: dict, shapes: dict) -> dict:
+        """Every leaf of a block (a dict tree, with its trees of logical
+        axes and global shapes) whole, for a computation every model rank
+        does alike: each keeps its own part of each gradient."""
+        return {k: self.whole(v, axes[k], shapes[k]) if isinstance(v, dict)
+                else self.take(v, axes[k], shapes[k], None, partial=False)
+                for k, v in p.items()}
+
+    def take_index(self, view: torch.Tensor, axes, shape, dim: int,
+                   index: torch.Tensor) -> torch.Tensor:
+        """The entries at ``index`` (distinct) along ``dim`` of a leaf of
+        logical ``axes`` and global ``shape``, from ``view`` as :meth:`take`
+        gets it: the stored split gathered whole, ``index_select``, and the
+        whole leaf freed before the layer's products. The gradient is put
+        back at ``index`` and reduce-scattered in rank order (summed over
+        the ranks where the leaf is stored whole), so entries that several
+        ranks read get the sum of their gradients."""
+        if self.size == 1:
+            return view.index_select(dim, index)
+        return _TakeIndex.apply(view, self, self.rules.split_dim(axes, shape, "model"), dim,
+                                index)
+
+    def read(self, p: dict, axes: dict, shapes: dict, reads: dict) -> dict:
+        """The leaves of a block as this rank reads them. ``reads`` maps a
+        key to the dimension of the leaf whose part this rank computes with
+        (an int, :meth:`take`), to ``(dim, index)`` (:meth:`take_index`) or
+        to a dict of the same kind for a subtree (a norm); ``axes`` and
+        ``shapes`` are the block's trees of logical axes and global shapes."""
+        out = {}
+        for k, how in reads.items():
+            if isinstance(how, dict):
+                out[k] = self.read(p[k], axes[k], shapes[k], how)
+            elif isinstance(how, tuple):
+                out[k] = self.take_index(p[k], axes[k], shapes[k], *how)
+            else:
+                out[k] = self.take(p[k], axes[k], shapes[k], how)
+        return out
 
 
 class _Copy(torch.autograd.Function):
@@ -139,6 +189,25 @@ class _Gather(torch.autograd.Function):
             return tp.reduce_scatter(g, dim), None, None, None
         start, stop = tp.part(g.shape[dim])
         return g.narrow(dim, start, stop - start).contiguous(), None, None, None
+
+
+class _TakeIndex(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, stored, dim, index):
+        ctx.tp, ctx.stored, ctx.dim = tp, stored, dim
+        whole = x if stored is None else torch.cat(tp.gather(x).unbind(0), dim=stored)
+        ctx.shape = whole.shape
+        ctx.save_for_backward(index)
+        return whole.index_select(dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, stored = ctx.tp, ctx.stored
+        (index,) = ctx.saved_tensors
+        whole = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        whole.index_copy_(ctx.dim, index, g)
+        gx = tp.sum(whole) if stored is None else tp.reduce_scatter(whole, stored)
+        return gx, None, None, None, None
 
 
 class _Scatter(torch.autograd.Function):

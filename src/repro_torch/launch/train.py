@@ -26,8 +26,16 @@ microbatch (``dist/data_parallel.py``), the MoE blocks take the global
 capacity, slots and load-balance loss, and the gradients are the exact
 mean over the ranks in rank order. Where P does not divide a microbatch,
 every rank takes the whole batch, as the reference's shape-aware sharding
-replicates it. ``--want-model`` other than 1 (tensor parallelism) is
-refused: the port has none yet.
+replicates it. ``--want-model m`` plans a (data, model) mesh with a model
+axis of up to ``m`` ranks: parameters and AdamW moments are stored by the
+reference's train table (``dist/sharding.py``, ``dist/fsdp.py``) at every
+``--want-model``, and every family computes tensor-parallel over the model
+ranks (``dist/tensor_parallel.py``): the vocab-parallel embedding, head and
+loss, head-parallel attention (whisper's cross attention too), MLPs over
+``ff``, the MoE block over its experts or ``ff``, the Mamba2, mLSTM and
+sLSTM blocks over their heads; a layer whose heads, ``ff`` or vocab the
+model ranks do not divide is computed whole on every model rank, as the
+table replicates it.
 
 ``--compress int8|topk`` sends the mean gradients through
 ``dist.compress.compressed_all_reduce`` over every rank, each contributing
@@ -134,11 +142,12 @@ def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None 
 
 @dataclasses.dataclass
 class Trained:
-    """A run's printed result, its final global state (on every rank), every
-    step's loss and wall, and the parameter shards this rank stored."""
+    """A run's printed result, its final global state (on every rank; None
+    where the caller asked for none), every step's loss and wall, and the
+    parameter shards this rank stored."""
 
     result: dict
-    params: dict
+    params: dict | None
     opt: object
     losses: list
     step_s: list
@@ -173,11 +182,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
+def train(args: argparse.Namespace, params=None, cfg=None, keep_state: bool = True) -> Trained:
     """The trainer's run; ``params`` (the port's parameter tree on the run's
     device) replaces the seeded initialisation, ``cfg`` the model config of
     ``--arch``/``--smoke``, when given. Across ranks every rank calls it
-    with the same arguments; every rank returns the same losses and state."""
+    with the same arguments; every rank returns the same losses and state.
+    ``keep_state``: return the final global ``(params, AdamWState)``, which
+    every rank gathers whole (the launcher's :func:`main` asks for none: a
+    model whose state fits a rank only sharded, zamba2-7b over 4 cards, then
+    ends as it ran; a checkpoint still gathers it)."""
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(lr=args.lr, total_steps=args.steps,
@@ -186,13 +199,14 @@ def train(args: argparse.Namespace, params=None, cfg=None) -> Trained:
     own_group, dev = join_process_group(resolve_device(args.device), args.coordinator,
                                         args.num_processes, args.process_id)
     try:
-        return _train(args, cfg, run, dev, params)
+        return _train(args, cfg, run, dev, params, keep_state)
     finally:
         if own_group:
             torch.distributed.destroy_process_group()
 
 
-def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
+def _train(args, cfg, run: RunConfig, dev: torch.device, params,
+           keep_state: bool = True) -> Trained:
     world = DataParallel(dev)
     main_rank = world.rank == 0
     plan = plan_mesh(world.size, global_batch=args.batch, want_model=args.want_model)
@@ -291,7 +305,9 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
                             ckpt.save(step + 1, state)
                 del state
                 break
-        params, opt_state = global_state()
+        params = opt_state = None
+        if keep_state or ckpt:
+            params, opt_state = global_state()
         if ckpt and main_rank:
             ckpt.wait()
             if ckpt.latest_step() != start_step + len(losses):  # not saved by the loop
@@ -326,7 +342,7 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params) -> Trained:
 
 def main(argv=None, params=None) -> dict:
     """Run the trainer; rank 0 prints the JSON line (every rank returns it)."""
-    out = train(parse_args(argv), params)
+    out = train(parse_args(argv), params, keep_state=False)
     if out.rank == 0:
         print(json.dumps(out.result))
     return out.result

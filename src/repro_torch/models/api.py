@@ -18,7 +18,13 @@ reference), the hybrid (zamba2's Mamba2 blocks and shared attention),
 xLSTM, and the encoder-decoder (whisper: ``batch["frames"]`` through the
 encoder, then the teacher-forced decoder; decode attends to the cache's
 cross K/V). The two recurrent families set the server's admission seam,
-``clear_slot`` and ``restore_slots`` (see :class:`Model`).
+``clear_slot`` and ``restore_slots`` (see :class:`Model`). Under a model
+group (``forward(..., tp=)``) every family computes tensor-parallel: the
+vocab-parallel embedding and head where the group splits the vocab,
+head-parallel attention, cross attention, Mamba2, mLSTM and sLSTM blocks,
+MLPs over ``ff``, the MoE block over its experts or ``ff``; a layer the
+group does not divide reads its leaves whole (replicated compute, as the
+reference's rule table replicates it).
 :func:`param_shapes` gives each family's tree of leaf shapes, and
 :func:`param_axes` their logical sharding axes (the trainer's rule table).
 """
@@ -67,8 +73,8 @@ class Model:
     def loss(self, params, batch, remat: bool = True, dp=None, tp=None):
         """``(total, metrics)``; ``dp``, the data-parallel group, reaches
         every MoE block (a family without one computes the same loss);
-        ``tp``, the model group, splits the dense family's layers, and the
-        loss of vocab-sharded logits is the vocab-parallel one."""
+        ``tp``, the model group, splits every family's layers, and the loss
+        of vocab-sharded logits is the vocab-parallel one."""
         logits, aux = self.forward(params, batch, remat=remat, dp=dp, tp=tp)
         loss = causal_lm_loss
         if logits.shape[-1] != self.cfg.vocab:  # this model rank's vocab part
@@ -100,21 +106,6 @@ class Model:
         return logits[:, -1]
 
 
-def _whole_leaves(cfg: ModelConfig):
-    """A family forward without tensor-parallel compute, under a model group
-    ``tp``: every leaf is gathered whole first (each model rank computes the
-    whole step, keeping its own part of each leaf's gradient)."""
-    def wrap(fwd):
-        @functools.wraps(fwd)
-        def run(params, batch, last_only=False, remat=False, dp=None, tp=None):
-            if tp is not None and tp.size > 1:
-                params = tree_map(lambda v, a, s: tp.take(v, a, s, None, partial=False),
-                                  params, param_axes(cfg), param_shapes(cfg))
-            return fwd(params, batch, last_only=last_only, remat=remat, dp=dp)
-        return run
-    return wrap
-
-
 def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
@@ -144,11 +135,14 @@ def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
         p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
         return p
 
-    @_whole_leaves(cfg)
-    def fwd(params, batch, last_only=False, remat=False, dp=None):
-        prefix = torch.matmul(batch["img_emb"].to(dtype), params["img_proj"])
+    def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
+        img_proj = params["img_proj"]
+        if tp is not None:  # split on embed only: every model rank projects the image
+            img_proj = tp.take(img_proj, (None, "embed"), (cfg.img_dim, cfg.d_model), None,
+                               partial=False)
+        prefix = torch.matmul(batch["img_emb"].to(dtype), img_proj)
         return transformer.forward(params, batch["tokens"], cfg, prefix_emb=prefix,
-                                   last_only=last_only, remat=remat, dp=dp)
+                                   last_only=last_only, remat=remat, dp=dp, tp=tp)
 
     model = _dense_family(cfg, dev)
     return dataclasses.replace(model, init_fn=init, forward=fwd, prefix_len=cfg.img_tokens)
@@ -172,10 +166,9 @@ def restore_slots(new, old, s: int):
 
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
                       init_cache) -> Model:
-    @_whole_leaves(cfg)
-    def fwd(params, batch, last_only=False, remat=False, dp=None):
+    def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
         del dp  # no MoE block
-        return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat)
+        return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat, tp=tp)
 
     def dec(params, batch):
         return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
@@ -201,12 +194,12 @@ def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
 def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    @_whole_leaves(cfg)
-    def fwd(params, batch, last_only=False, remat=False, dp=None):
+    def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
         # as in the reference, whisper's blocks are not rematerialized; no MoE block
         del remat, dp
-        enc = whisper.encode(params, batch["frames"].to(dtype), cfg)
-        return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only), {}
+        enc = whisper.encode(params, batch["frames"].to(dtype), cfg, tp)
+        return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only,
+                                    tp=tp), {}
 
     def dec(params, batch):
         return whisper.decode_step(params, batch["token"], batch["cache"], batch["pos"], cfg)

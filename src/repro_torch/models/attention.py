@@ -2,7 +2,8 @@
 
 Port of ``repro/models/attention.py``: self-attention, and whisper's
 ``cross_attention`` and ``project_cross_kv`` (the reference's ``_mask`` is
-called nowhere there and is left out).
+called nowhere there and is left out); under a model group both are
+head-parallel (:func:`attention_tp`, :func:`cross_attend_tp`).
 Layouts are the reference's:
 
     q        [B, S, H, hd]          k/v  [B, T, K, hd]
@@ -127,24 +128,36 @@ def head_part(cfg, rank: int, size: int) -> tuple[tuple[int, int], object]:
     return (h0, h1), torch.arange(h0, h1) // (cfg.n_heads // cfg.n_kv_heads)
 
 
-def attention_tp(p, x, cfg, tp, **kw):
-    """Head-parallel attention over the model group ``tp``: each rank
-    projects and attends with its query heads (and its KV heads, or every
-    KV head where the ranks do not split them), then ``wo`` on its heads and
-    one reduce. ``wq``/``wk``/``wv`` are stored split on ``d_model`` and
-    gathered first. Where the group does not split the heads, every rank
-    computes the whole attention."""
-    shapes = attention_shapes(cfg, "bq" in p, x.shape[-1])
-    axes = attention_axes("bq" in p)
-    if not tp.splits(cfg.n_heads):
-        return attention({k: tp.take(v, axes[k], shapes[k], None, partial=False)
-                          for k, v in p.items()}, x, cfg, **kw)
+def _tree(p, cfg, d: int) -> tuple[dict, dict]:
+    """The logical axes and global shapes of an attention's leaves ``p`` of
+    width ``d``."""
+    return attention_axes("bq" in p), attention_shapes(cfg, "bq" in p, d)
+
+
+def _head_leaves(p, cfg, tp, d: int):
+    """This model rank's leaves of a head-parallel attention of width ``d``
+    (its query heads, ``wo`` rows and biases; its KV heads where the ranks
+    split them, else every KV head) and the KV index of its query heads
+    (None where it has its own KV heads). ``wq``/``wk``/``wv`` are stored
+    split on ``d_model`` and gathered first."""
+    axes, shapes = _tree(p, cfg, d)
     _, kv_idx = head_part(cfg, tp.rank, tp.size)
     kv = (1, 0) if kv_idx is None else (None, None)  # (wk/wv, bk/bv) part dims
     dims = {"wq": 1, "wo": 0, "bq": 0, "wk": kv[0], "wv": kv[0], "bk": kv[1], "bv": kv[1]}
     local = {k: tp.take(v, axes[k], shapes[k], dims.get(k)) for k, v in p.items()}
-    if kv_idx is not None:
-        kv_idx = kv_idx.to(x.device)
+    return local, None if kv_idx is None else kv_idx.to(tp.device)
+
+
+def attention_tp(p, x, cfg, tp, **kw):
+    """Head-parallel attention over the model group ``tp``: each rank
+    projects and attends with its query heads (and its KV heads, or every
+    KV head where the ranks do not split them), then ``wo`` on its heads and
+    one reduce. ``kw`` (``causal``, ``use_rope``, ``window``, ``positions``)
+    reaches every rank's :func:`attention`. Where the group does not split
+    the heads, every rank computes the whole attention."""
+    if not tp.splits(cfg.n_heads):
+        return attention(tp.whole(p, *_tree(p, cfg, x.shape[-1])), x, cfg, **kw)
+    local, kv_idx = _head_leaves(p, cfg, tp, x.shape[-1])
     return tp.reduce(attention(local, tp.copy(x), cfg, kv_idx=kv_idx, **kw))
 
 
@@ -193,3 +206,27 @@ def project_cross_kv(p, enc_out):
         k = k + p["bk"]
         v = v + p["bv"]
     return k, v
+
+
+def cross_attend(p, x, enc_out, kv_idx=None):
+    """Train/prefill cross attention of the heads whose leaves ``p`` holds
+    (every head, or a model rank's part): the encoder output's K/V
+    projected (:func:`project_cross_kv`) and attended
+    (:func:`cross_attention`). ``kv_idx``: as in :func:`attention`."""
+    k, v = project_cross_kv(p, enc_out)
+    if kv_idx is not None:
+        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
+    return cross_attention(p, x, k, v)
+
+
+def cross_attend_tp(p, x, enc_out, cfg, tp):
+    """:func:`cross_attend` head-parallel over the model group ``tp``: each
+    rank projects the encoder output to its KV heads and attends with its
+    query heads, ``bq``/``bk``/``bv`` entries and ``wo`` rows; one reduce.
+    The decoder's and the encoder's outputs enter through ``tp.copy``, so
+    their gradients are summed over the ranks. Where the group does not
+    split the heads, every rank computes the whole cross attention."""
+    if not tp.splits(cfg.n_heads):
+        return cross_attend(tp.whole(p, *_tree(p, cfg, x.shape[-1])), x, enc_out)
+    local, kv_idx = _head_leaves(p, cfg, tp, x.shape[-1])
+    return tp.reduce(cross_attend(local, tp.copy(x), tp.copy(enc_out), kv_idx))

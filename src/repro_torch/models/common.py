@@ -91,6 +91,33 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+def sum_squares(x):
+    """``Σ x²`` over the last dimension in float32, kept as ``[..., 1]``: a
+    rank's part of the statistic of an RMSNorm over a split dimension."""
+    xf = x.float()
+    return torch.sum(xf * xf, dim=-1, keepdim=True)
+
+
+def rmsnorm_part(x, scale, ss, d: int, eps: float = 1e-6):
+    """:func:`rmsnorm` of a rank's entries ``x`` of a dimension of ``d``
+    split over the model ranks, and its entries ``scale``: ``ss`` is the
+    :func:`sum_squares` of the whole dimension (the ranks' parts added)."""
+    xf = x.float()
+    out = xf * torch.rsqrt(ss / d + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def norm_tp(p, x, kind: str, d: int, eps: float, tp):
+    """:func:`apply_norm` over a dimension of ``d`` split over the model
+    group ``tp``: ``x`` and ``p``'s ``scale`` are this rank's entries, and
+    the parts' sums of squares are added over the group in rank order
+    (every rank holds the same bits; the gradient of the sum reaches every
+    rank's part). Only an RMSNorm splits so."""
+    if kind != "rmsnorm":
+        raise ValueError(f"a norm over a split dimension is an RMSNorm, not a {kind}")
+    return rmsnorm_part(x, p["scale"], tp.all_reduce(sum_squares(x)), d, eps)
+
+
 def layernorm(x, scale, bias, eps: float = 1e-5):
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
@@ -174,19 +201,24 @@ def init_mlp(gen, d, f, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def apply_mlp_tp(p, x, act: str, tp, f: int):
-    """:func:`apply_mlp` under a model group ``tp``: column-parallel
+def mlp_tp(p, x, tp, f: int, fn):
+    """``fn(p, x)``, an MLP of ``MLP_AXES``' leaves (``wi``, ``wo`` and
+    ``wg`` where it has one), under a model group ``tp``: column-parallel
     ``wi``/``wg`` and row-parallel ``wo`` over ``ff`` (width ``f``), one
     reduce; where the group does not split ``ff`` every rank computes the
     whole MLP, as the reference replicates it."""
     d = x.shape[-1]
     shapes = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
     if not tp.splits(f):
-        return apply_mlp({k: tp.take(v, MLP_AXES[k], shapes[k], None, partial=False)
-                          for k, v in p.items()}, x, act)
+        return fn(tp.whole(p, MLP_AXES, shapes), x)
     local = {k: tp.take(v, MLP_AXES[k], shapes[k], 0 if k == "wo" else 1)
              for k, v in p.items()}
-    return tp.reduce(apply_mlp(local, tp.copy(x), act))
+    return tp.reduce(fn(local, tp.copy(x)))
+
+
+def apply_mlp_tp(p, x, act: str, tp, f: int):
+    """:func:`apply_mlp` under a model group ``tp`` (:func:`mlp_tp`)."""
+    return mlp_tp(p, x, tp, f, functools.partial(apply_mlp, act=act))
 
 
 def apply_mlp(p, x, act: str = "silu"):

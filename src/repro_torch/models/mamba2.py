@@ -11,7 +11,9 @@ scan, ``y`` returns to the model type before the ``silu(z)`` gate; the
 depthwise conv runs in the model type and its ``silu`` in float32, cast
 back. Decode keeps the conv state in the model type and ``h`` in float32.
 Every decay is ``exp(clip(·, -60, 0))``. One B/C group is shared by all
-heads.
+heads. Under a model group the heads are split over the ranks
+(:func:`ssd_forward_tp`): :func:`ssd_heads` is the per-rank code, which
+``models/tp_ranks.py`` runs for every rank in one process.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (apply_norm, dense_init, init_norm, norm_axes, norm_shapes,
-                                       normal_init)
+                                       norm_tp, normal_init)
 
 CONV_W = 4
 
@@ -85,21 +87,72 @@ def _decay(x):
     return torch.exp(torch.clamp(x, -60.0, 0.0))
 
 
-def ssd_forward(p, x_in, cfg, *, chunk=None):
+def ssd_forward(p, x_in, cfg, *, chunk=None, tp=None):
     """Full-sequence SSD. x_in: [B, S, d] → [B, S, d]. ``chunk`` (default
-    ``cfg.ssm_chunk``, at most S) must divide S: the reference pads nothing."""
-    d, di, h, hp, n = dims(cfg)
-    b, s, _ = x_in.shape
+    ``cfg.ssm_chunk``, at most S) must divide S: the reference pads nothing.
+    ``tp``: the model group, over which the Mamba heads are split
+    (:func:`ssd_forward_tp`)."""
+    if tp is not None:
+        return ssd_forward_tp(p, x_in, cfg, tp, chunk=chunk)
+    u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
+    y = ssd_heads(p, u, cfg, chunk=chunk)
+    y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
+    return x_in + torch.matmul(y, p["out_proj"])
+
+
+def head_reads(cfg, h0: int, h1: int, device) -> dict:
+    """What the part of the block that computes Mamba heads ``[h0, h1)``
+    reads of each leaf (``TensorParallel.read``'s map): its ``z``, ``x`` and
+    ``dt`` columns of ``in_proj`` and all of ``B`` and ``C`` (one group,
+    shared by every head), its ``x`` channels of the conv and all of its
+    ``B``/``C`` channels, its entries of ``a_log``, ``dt_bias``, ``d_skip``
+    and ``out_norm``, and its rows of ``out_proj``. Head-major ``di``, so a
+    rank's heads are its part of every ``h``- and ``di``-long dimension."""
+    _, di, _, hp, n = dims(cfg)
+    z = torch.arange(h0 * hp, h1 * hp, device=device)
+    bc = torch.arange(2 * n, device=device)
+    cols = torch.cat([z, di + z, 2 * di + bc,
+                      torch.arange(2 * di + 2 * n + h0, 2 * di + 2 * n + h1, device=device)])
+    chans = torch.cat([z, di + bc])
+    return {"in_proj": (1, cols), "conv_w": (1, chans), "conv_b": (0, chans), "a_log": 0,
+            "dt_bias": 0, "d_skip": 0, "out_norm": {"scale": 0}, "out_proj": 0}
+
+
+def ssd_forward_tp(p, x_in, cfg, tp, *, chunk=None):
+    """:func:`ssd_forward` under the model group ``tp``: each rank runs the
+    chunk loop over its Mamba heads (:func:`head_reads`; ``B`` and ``C`` on
+    every rank, their gradients summed), the RMSNorm over its part of
+    ``di`` with the sums of squares added over the group, a row-parallel
+    ``out_proj`` and one reduce. Where the group does not split the heads,
+    every rank computes the whole block."""
+    _, di, h, _, _ = dims(cfg)
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    if not tp.splits(h):
+        return ssd_forward(tp.whole(p, axes, shapes), x_in, cfg, chunk=chunk)
+    local = tp.read(p, axes, shapes, head_reads(cfg, *tp.part(h), x_in.device))
+    u = tp.copy(apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps))
+    y = ssd_heads(local, u, cfg, chunk=chunk)
+    y = norm_tp(local["out_norm"], y, cfg.norm, di, cfg.norm_eps, tp)
+    return x_in + tp.reduce(torch.matmul(y, local["out_proj"]))
+
+
+def ssd_heads(p, u, cfg, *, chunk=None):
+    """The SSD of the heads whose leaves ``p`` holds (every head, or a model
+    rank's part read by :func:`head_reads`), from ``u``, the normed block
+    input [B, S, d]: the ``silu(z)``-gated output [B, S, heads·P] before
+    ``out_norm``. ``chunk`` as in :func:`ssd_forward`."""
+    _, _, _, hp, n = dims(cfg)
+    h = p["a_log"].shape[0]
+    di = h * hp
+    b, s, _ = u.shape
     q = min(chunk or cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"ssd_forward: sequence length {s} is not a multiple of the "
                          f"chunk {q}")
     nc = s // q
 
-    res = x_in
-    u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
-    u = torch.matmul(u, p["in_proj"])
-    z, xc, b_, c_, dt_raw = _split(cfg, u)
+    proj = torch.matmul(u, p["in_proj"])
+    z, xc, b_, c_, dt_raw = torch.split(proj, [di, di, n, n, h], dim=-1)
     xbc = _causal_conv(torch.cat([xc, b_, c_], -1), p["conv_w"], p["conv_b"])
     xc, b_, c_ = torch.split(xbc, [di, n, n], dim=-1)
 
@@ -117,10 +170,10 @@ def ssd_forward(p, x_in, cfg, *, chunk=None):
     xq = xdt.reshape(b, nc, q, h, hp)
     bq = bf.reshape(b, nc, q, n)
     cq = cf.reshape(b, nc, q, n)
-    iota = torch.arange(q, device=x_in.device)
+    iota = torch.arange(q, device=u.device)
     causal = (iota[:, None] >= iota[None, :]).float()
 
-    hstate = torch.zeros((b, h, n, hp), dtype=torch.float32, device=x_in.device)
+    hstate = torch.zeros((b, h, n, hp), dtype=torch.float32, device=u.device)
     ys = []
     for c in range(nc):
         xck, bck, cck, lck, ltotk = xq[:, c], bq[:, c], cq[:, c], lcs[:, c], ltot[:, c]
@@ -139,10 +192,8 @@ def ssd_forward(p, x_in, cfg, *, chunk=None):
         ys.append(y_intra + y_carry)
     y = torch.stack(ys, dim=1).reshape(b, s, h, hp)
     y = y + xh * p["d_skip"][None, None, :, None]
-    y = y.reshape(b, s, di).to(x_in.dtype)
-    y = y * F.silu(z.float()).to(y.dtype)
-    y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
-    return res + torch.matmul(y, p["out_proj"])
+    y = y.reshape(b, s, di).to(u.dtype)
+    return y * F.silu(z.float()).to(y.dtype)
 
 
 def ssd_decode(p, x_in, cfg, state):

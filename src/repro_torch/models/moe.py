@@ -170,7 +170,7 @@ def _experts_tp(x_e, p, cfg, tp):
         local = {k: tp.take(v, MOE_AXES[k], shapes[k], 1 if k == "wo" else 2)
                  for k, v in w.items()}
         return tp.reduce(_expert_ffn(tp.copy(x_e), local))
-    whole = {k: tp.take(v, MOE_AXES[k], shapes[k], None, partial=False) for k, v in w.items()}
+    whole = tp.whole(w, MOE_AXES, shapes)
     return _expert_ffn(x_e, whole)
 
 

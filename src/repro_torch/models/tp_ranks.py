@@ -4,40 +4,75 @@ Each function runs the per-rank code of one of the model group's layers
 (``dist/tensor_parallel.py``) for every rank of a group of ``size``, on the
 part of the whole leaves that rank reads, and combines the parts in rank
 order, as the layer's collective does: the MLP on each rank's ``ff``
-columns, attention on its heads, the embedding lookup and the loss on its
-vocab part, the MoE block's products on its experts (or on each expert's
-``ff`` part). A rank's leaves are slices of the whole leaves, so the
-gradients come back as the whole leaves'. ``chip_smoke.py`` phase 19b and
-the CPU tests hold these against the unsplit layers; the trainer runs the
-same per-rank code, one rank a process.
+columns, attention and cross attention on its heads, the embedding lookup
+and the loss on its vocab part, the MoE block's products on its experts
+(or on each expert's ``ff`` part), the Mamba2, mLSTM and sLSTM blocks on
+their heads (an RMSNorm's sums of squares added over the ranks between two
+stages), whisper's blocks around those layers. A rank's leaves are slices
+of the whole leaves (the blocks' own maps, read by :func:`_read` as
+``TensorParallel.read`` reads them), so the gradients come back as the
+whole leaves'. ``chip_smoke.py`` phases 19b and 20a and the CPU tests hold
+these against the unsplit layers; the trainer runs the same per-rank code,
+one rank a process.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.dist.data_parallel import add_in_order
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, whisper, xlstm
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import apply_mlp
+from repro_torch.models.common import apply_mlp, apply_norm, rmsnorm_part, sum_squares
 from repro_torch.models.losses import lm_total, sum_exp, target_logit
 from repro_torch.models.transformer import embed_part, scale_embedding
 
 
 def _part(n: int, rank: int, size: int) -> slice:
+    """Rank ``rank``'s part of a dimension of ``n`` split over ``size``."""
     per = n // size
     return slice(rank * per, (rank + 1) * per)
 
 
-def mlp(p, x, act: str, size: int):
-    """The gated MLP, ``ff`` split over ``size`` ranks: column-parallel
-    ``wi``/``wg``, row-parallel ``wo``, the partial outputs added."""
-    parts = []
-    for m in range(size):
-        sl = _part(p["wi"].shape[1], m, size)
-        parts.append(apply_mlp({"wi": p["wi"][:, sl], "wg": p["wg"][:, sl], "wo": p["wo"][sl]},
-                               x, act))
-    return add_in_order(parts)
+def _read(p: dict, reads: dict, rank: int, size: int) -> dict:
+    """What rank ``rank`` of ``size`` reads of whole leaves ``p`` by a
+    block's map (``TensorParallel.read``'s: a dimension whose part the rank
+    takes, ``(dim, index)``, or a subtree)."""
+    out = {}
+    for k, how in reads.items():
+        if isinstance(how, dict):
+            out[k] = _read(p[k], how, rank, size)
+        elif isinstance(how, tuple):
+            out[k] = p[k].index_select(how[0], how[1])
+        else:
+            sl = _part(p[k].shape[how], rank, size)
+            out[k] = p[k].narrow(how, sl.start, sl.stop - sl.start)
+    return out
+
+
+def mlp(p, x, act: str, size: int, fn=None):
+    """The MLP (gated, or ``fn(p, x)`` on ``wi``/``wo``), ``ff`` split over
+    ``size`` ranks: column-parallel ``wi``/``wg``, row-parallel ``wo``, the
+    partial outputs added."""
+    fn = fn or functools.partial(apply_mlp, act=act)
+    reads = {k: 0 if k == "wo" else 1 for k in p}
+    return add_in_order([fn(_read(p, reads, m, size), x) for m in range(size)])
+
+
+def _attention_leaves(p, cfg, m: int, size: int):
+    """Rank ``m``'s leaves of a head-parallel attention and its KV index."""
+    (h0, h1), kv_idx = attn.head_part(cfg, m, size)
+    local = {"wq": p["wq"][:, h0:h1], "wo": p["wo"][h0:h1]}
+    if "bq" in p:
+        local["bq"] = p["bq"][h0:h1]
+    kv = _part(cfg.n_kv_heads, m, size) if kv_idx is None else slice(None)
+    local.update(wk=p["wk"][:, kv], wv=p["wv"][:, kv])
+    if "bk" in p:
+        local.update(bk=p["bk"][kv], bv=p["bv"][kv])
+    return local, None if kv_idx is None else kv_idx.to(p["wq"].device)
 
 
 def attention(p, x, cfg, size: int, **kw):
@@ -46,16 +81,18 @@ def attention(p, x, cfg, size: int, **kw):
     partial outputs added."""
     parts = []
     for m in range(size):
-        (h0, h1), kv_idx = attn.head_part(cfg, m, size)
-        local = {"wq": p["wq"][:, h0:h1], "wo": p["wo"][h0:h1]}
-        if "bq" in p:
-            local["bq"] = p["bq"][h0:h1]
-        kv = _part(cfg.n_kv_heads, m, size) if kv_idx is None else slice(None)
-        local.update(wk=p["wk"][:, kv], wv=p["wv"][:, kv])
-        if "bk" in p:
-            local.update(bk=p["bk"][kv], bv=p["bv"][kv])
-        parts.append(attn.attention(local, x, cfg, kv_idx=None if kv_idx is None
-                                    else kv_idx.to(x.device), **kw))
+        local, kv_idx = _attention_leaves(p, cfg, m, size)
+        parts.append(attn.attention(local, x, cfg, kv_idx=kv_idx, **kw))
+    return add_in_order(parts)
+
+
+def cross_attention(p, x, enc_out, cfg, size: int):
+    """Head-parallel cross attention: each rank projects the encoder output
+    to its KV heads and attends with its query heads; the parts added."""
+    parts = []
+    for m in range(size):
+        local, kv_idx = _attention_leaves(p, cfg, m, size)
+        parts.append(attn.cross_attend(local, x, enc_out, kv_idx))
     return add_in_order(parts)
 
 
@@ -97,3 +134,81 @@ def moe(p, x, cfg, size: int, capacity_factor: float | None = None):
                                                        "wo": q["wo"][:, sl]}) for sl in sls])
 
     return moe_lib.apply_moe_gspmd(p, x, cfg, capacity_factor, experts=experts)
+
+
+def plain_mlp(p, x, size: int):
+    """whisper's plain GELU MLP, ``ff`` split over ``size`` ranks."""
+    return mlp(p, x, "gelu", size, fn=whisper.apply_plain_mlp)
+
+
+def whisper_encoder_block(p, h, cfg, size: int):
+    """whisper's encoder block with its attention and MLP split over
+    ``size`` ranks (``whisper.enc_block``)."""
+    return whisper.enc_block(
+        p, h, lambda q, a: attention(q, a, cfg, size, causal=False, use_rope=False),
+        lambda q, a: plain_mlp(q, a, size))
+
+
+def whisper_decoder_block(p, h, enc_out, cfg, size: int):
+    """whisper's decoder block with self attention, cross attention and
+    MLP split over ``size`` ranks (``whisper.dec_block``)."""
+    return whisper.dec_block(
+        p, h, enc_out, lambda q, a: attention(q, a, cfg, size, causal=True, use_rope=False),
+        lambda q, a, e: cross_attention(q, a, e, cfg, size),
+        lambda q, a: plain_mlp(q, a, size))
+
+
+def _bounds(n: int, rank: int, size: int) -> tuple[int, int]:
+    sl = _part(n, rank, size)
+    return sl.start, sl.stop
+
+
+def mamba2_block(p, x, cfg, size: int, chunk=None):
+    """The Mamba2 block with its heads split over ``size`` ranks: each
+    rank's SSD (``mamba2.ssd_heads`` on its ``head_reads``), the sums of
+    squares of ``out_norm`` added over the ranks, each rank's norm and
+    ``out_proj`` rows, the partial outputs added."""
+    _, di, h, _, _ = mamba2.dims(cfg)
+    u = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    local = [_read(p, mamba2.head_reads(cfg, *_bounds(h, m, size), x.device), m, size)
+             for m in range(size)]
+    ys = [mamba2.ssd_heads(q, u, cfg, chunk=chunk) for q in local]
+    ss = add_in_order([sum_squares(y) for y in ys])
+    return x + add_in_order([
+        torch.matmul(rmsnorm_part(y, q["out_norm"]["scale"], ss, di, cfg.norm_eps),
+                     q["out_proj"]) for y, q in zip(ys, local)])
+
+
+def mlstm_block(p, x, cfg, size: int, chunk: int = 256):
+    """The mLSTM block with its heads split over ``size`` ranks: each
+    rank's up projections, ``u`` gathered, each rank's chunk loop, the sums
+    of squares of ``out_norm`` added over the ranks, each rank's gate and
+    ``down`` rows, the partial outputs added."""
+    _, di, h, _ = xlstm.mlstm_dims(cfg)
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    local = [_read(p, xlstm.mlstm_reads(cfg, *_bounds(h, m, size), x.device), m, size)
+             for m in range(size)]
+    ups = [xlstm.mlstm_up(q, xin) for q in local]
+    u = torch.cat([uu for uu, _ in ups], dim=-1)
+    hs = [xlstm.mlstm_cell(q, u, cfg, chunk=chunk).to(x.dtype) for q in local]
+    ss = add_in_order([sum_squares(hh) for hh in hs])
+    return x + add_in_order([
+        xlstm.mlstm_gate_down(q, rmsnorm_part(hh, q["out_norm"]["scale"], ss, di,
+                                              cfg.norm_eps), z)
+        for hh, q, (_, z) in zip(hs, local, ups)])
+
+
+def slstm_block(p, x, cfg, size: int):
+    """The sLSTM block with its heads split over ``size`` ranks: each
+    rank's step loop over its heads, the sums of squares of ``out_norm``
+    added over the ranks, the normed parts concatenated for the residual,
+    then the GeGLU FFN split over ``ff``."""
+    d = cfg.d_model
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    local = [_read(p, xlstm.SLSTM_READS, m, size) for m in range(size)]
+    hs = [xlstm.slstm_scan(q["r"], xlstm.slstm_gates(q, xin)).to(x.dtype) for q in local]
+    ss = add_in_order([sum_squares(hh) for hh in hs])
+    x = x + torch.cat([rmsnorm_part(hh, q["out_norm"]["scale"], ss, d, cfg.norm_eps)
+                       for hh, q in zip(hs, local)], dim=-1)
+    hf = apply_norm(p["ln_ffn"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp(xlstm.ffn_leaves(p), hf, "gelu", size)

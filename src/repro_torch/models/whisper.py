@@ -10,15 +10,23 @@ Decode keeps, per decoder layer, a self-attention KV cache of the serving
 length (written in place at each slot's position) and a cross-attention
 K/V of ``enc_len`` positions. ``init_cache`` leaves the cross K/V at zero;
 the conditioned path fills it from ``project_cross_kv(encode(frames))``.
+Under a model group ``encode`` and ``decode_train`` split attention and
+cross attention over their heads, the MLP over ``ff`` and the tied head
+over the vocab where the group divides it (:func:`enc_block` and
+:func:`dec_block` take the layers, so ``models/tp_ranks.py`` runs the same
+blocks with every rank in one process).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
+from repro_torch.models import transformer
+from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm, mlp_tp,
                                        norm_axes, norm_shapes, sinusoidal_pos)
 
 
@@ -31,6 +39,14 @@ def apply_plain_mlp(p, x):
     h = torch.matmul(x, p["wi"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return torch.matmul(h, p["wo"])
+
+
+def plain_mlp(p, x, cfg, tp=None):
+    """:func:`apply_plain_mlp`; under a model group ``tp`` column-parallel
+    ``wi`` and row-parallel ``wo`` over ``ff`` (``common.mlp_tp``)."""
+    if tp is None:
+        return apply_plain_mlp(p, x)
+    return mlp_tp(p, x, tp, cfg.d_ff, apply_plain_mlp)
 
 
 def init_enc_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
@@ -95,44 +111,63 @@ def param_axes(cfg) -> dict:
     return out
 
 
-def _enc_block(p, h, cfg):
+def enc_block(p, h, attend, mlp):
+    """An encoder block around its layers: ``attend(p_attn, a)`` and
+    ``mlp(p_mlp, a)`` (whole, head- and ff-parallel, or a test's ranks in
+    one process)."""
     a = apply_norm(p["ln1"], h, "layernorm")
-    h = h + attn.attention(p["attn"], a, cfg, causal=False, use_rope=False)
-    return h + apply_plain_mlp(p["mlp"], apply_norm(p["ln2"], h, "layernorm"))
+    h = h + attend(p["attn"], a)
+    return h + mlp(p["mlp"], apply_norm(p["ln2"], h, "layernorm"))
 
 
-def encode(params, frames, cfg):
-    """frames: [B, enc_len, d] (the stub frontend's output)."""
+def dec_block(p, h, enc_out, self_attend, cross, mlp):
+    """A decoder block around its layers: ``self_attend(p_attn, a)``,
+    ``cross(p_cross, a, enc_out)`` and ``mlp(p_mlp, a)``."""
+    a = apply_norm(p["ln1"], h, "layernorm")
+    h = h + self_attend(p["self_attn"], a)
+    a = apply_norm(p["ln2"], h, "layernorm")
+    h = h + cross(p["cross_attn"], a, enc_out)
+    return h + mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
+
+
+def block_layers(cfg, tp, causal: bool):
+    """A block's layers under the model group ``tp`` (None: whole)."""
+    attend = functools.partial(attn.attention, cfg=cfg, causal=causal, use_rope=False, tp=tp)
+    cross = (attn.cross_attend if tp is None
+             else functools.partial(attn.cross_attend_tp, cfg=cfg, tp=tp))
+    return attend, cross, functools.partial(plain_mlp, cfg=cfg, tp=tp)
+
+
+def encode(params, frames, cfg, tp=None):
+    """frames: [B, enc_len, d] (the stub frontend's output). ``tp``: the
+    model group, over which attention (heads) and the MLP (``ff``) split;
+    ``params`` then this rank's view of the stored leaves."""
+    attend, _, mlp = block_layers(cfg, tp, causal=False)
     h = frames + sinusoidal_pos(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
     for i in range(cfg.enc_layers):
-        h = _enc_block(params[f"enc_{i}"], h, cfg)
+        h = enc_block(params[f"enc_{i}"], h, attend, mlp)
     return apply_norm(params["ln_enc"], h, "layernorm")
 
 
-def _dec_block(p, h, enc_out, cfg):
-    a = apply_norm(p["ln1"], h, "layernorm")
-    h = h + attn.attention(p["self_attn"], a, cfg, causal=True, use_rope=False)
-    a = apply_norm(p["ln2"], h, "layernorm")
-    ck, cv = attn.project_cross_kv(p["cross_attn"], enc_out)
-    h = h + attn.cross_attention(p["cross_attn"], a, ck, cv)
-    return h + apply_plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
-
-
-def _logits(params, h):
+def _logits(params, h, cfg, tp=None):
     h = apply_norm(params["ln_dec"], h, "layernorm")
-    return torch.matmul(h, params["embed"].t()).float()
+    return transformer.unembed(params, h, cfg, tp)
 
 
-def decode_train(params, tokens, enc_out, cfg, *, last_only: bool = False):
+def decode_train(params, tokens, enc_out, cfg, *, last_only: bool = False, tp=None):
     """Teacher-forced decoder over the whole token sequence (train/prefill);
-    each layer projects its cross K/V from ``enc_out``."""
-    h = params["embed"][tokens]
+    each layer projects its cross K/V from ``enc_out``. ``tp``: the model
+    group: self and cross attention head-parallel, the MLP over ``ff``, the
+    tied embedding and head vocab-parallel where the group splits the vocab
+    (the logits then this rank's vocab part)."""
+    attend, cross, mlp = block_layers(cfg, tp, causal=True)
+    h = transformer.embed_tokens(params, tokens, cfg, tp)
     h = h + sinusoidal_pos(tokens.shape[1], cfg.d_model, h.device).to(h.dtype)
     for i in range(cfg.n_layers):
-        h = _dec_block(params[f"dec_{i}"], h, enc_out, cfg)
+        h = dec_block(params[f"dec_{i}"], h, enc_out, attend, cross, mlp)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, h)
+    return _logits(params, h, cfg, tp)
 
 
 def decode_step(params, token, cache, pos, cfg):
@@ -154,7 +189,7 @@ def decode_step(params, token, cache, pos, cfg):
         h = h + attn.cross_attention(p["cross_attn"], a, c["xk"], c["xv"])
         h = h + apply_plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
         new_cache[f"dec_{i}"] = {"k": nk, "v": nv, "xk": c["xk"], "xv": c["xv"]}
-    return _logits(params, h)[:, 0], new_cache
+    return _logits(params, h, cfg)[:, 0], new_cache
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):

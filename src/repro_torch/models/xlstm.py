@@ -9,6 +9,11 @@ instead. The two agree to the reference's own 2e-3, not to the last bit.
 The sLSTM is a step loop over a float32 per-head block-diagonal ``R``,
 followed by a GeGLU feed-forward (``f = int(8·d/3/64)·64``, the tanh form of
 gelu). Both ``m`` states start at -30.0 in :func:`init_xlstm_cache`.
+Under a model group both blocks split their heads over the ranks
+(:func:`mlstm_forward_tp`, :func:`slstm_forward_tp`); ``mlstm_up``,
+``mlstm_cell``, ``mlstm_gate_down``, ``slstm_gates`` and ``slstm_scan`` are
+the per-rank code, which ``models/tp_ranks.py`` runs for every rank in one
+process.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (apply_norm, dense_init, embed_init, init_norm,
-                                       norm_axes, normal_init, norm_shapes, remat_call)
+from repro_torch.models import transformer
+from repro_torch.models.common import (apply_mlp, apply_norm, dense_init, embed_init, init_norm,
+                                       mlp_tp, norm_axes, norm_shapes, norm_tp, normal_init,
+                                       remat_call)
 
 M_INIT = -30.0
 
@@ -74,8 +81,26 @@ def mlstm_axes(cfg) -> dict:
             "out_norm": norm, "down": ("ff", "embed")}
 
 
+def mlstm_reads(cfg, h0: int, h1: int, device) -> dict:
+    """What the part of the block that computes heads ``[h0, h1)`` reads
+    of each leaf (``TensorParallel.read``'s map). ``di`` is head-major, so
+    its columns of ``up_x``/``up_z``, its entries of ``out_norm`` and its
+    rows of ``down`` are its part of ``di``; ``wq``/``wk``/``wv`` mix all of
+    ``u``, so it reads their columns of its heads (and the gathered ``u``),
+    and of ``w_if``/``b_if`` its heads' input and forget gates."""
+    _, di, h, hp = mlstm_dims(cfg)
+    cols = torch.arange(h0 * hp, h1 * hp, device=device)
+    gates = torch.cat([torch.arange(h0, h1, device=device),
+                       torch.arange(h + h0, h + h1, device=device)])
+    return {"up_x": 1, "up_z": 1, "wq": (1, cols), "wk": (1, cols), "wv": (1, cols),
+            "w_if": (1, gates), "b_if": (0, gates), "out_norm": {"scale": 0}, "down": 0}
+
+
 def _mlstm_qkvg(p, u, cfg):
-    d, di, h, hp = mlstm_dims(cfg)
+    """q, k, v and the gates' pre-activations of the heads whose leaves
+    ``p`` holds (every head, or a rank's part), from all of ``u``."""
+    hp = mlstm_dims(cfg)[3]
+    h = p["w_if"].shape[1] // 2
     b, s, _ = u.shape
     q = torch.matmul(u, p["wq"]).reshape(b, s, h, hp)
     # the reference divides by sqrt(hp) rounded to float32, then to u's type
@@ -87,28 +112,68 @@ def _mlstm_qkvg(p, u, cfg):
     return q.float(), k.float(), v.float(), i_raw, f_raw
 
 
+def mlstm_up(p, xin):
+    """The up projections ``(u, z)`` of the normed input (a rank's part of
+    ``di`` where ``p`` holds a rank's columns)."""
+    return torch.matmul(xin, p["up_x"]), torch.matmul(xin, p["up_z"])
+
+
+def mlstm_gate_down(p, hout, z):
+    """The ``silu(z)`` gate and the down projection of the normed cell
+    output (a rank's partial sum where ``p`` holds a rank's rows)."""
+    hout = hout * F.silu(z.float()).to(hout.dtype)
+    return torch.matmul(hout, p["down"])
+
+
 def _mlstm_out(p, hout, z, x, cfg):
     """Out-norm, the ``silu(z)`` gate, the down projection and the residual."""
     hout = apply_norm(p["out_norm"], hout.to(x.dtype), cfg.norm, cfg.norm_eps)
-    hout = hout * F.silu(z.float()).to(hout.dtype)
-    return x + torch.matmul(hout, p["down"])
+    return x + mlstm_gate_down(p, hout, z)
 
 
-def mlstm_forward(p, x, cfg, *, chunk: int = 256):
+def mlstm_forward(p, x, cfg, *, chunk: int = 256, tp=None):
     """Full-sequence mLSTM. x: [B, S, d] → [B, S, d]; ``chunk`` (at most S)
-    must divide S."""
-    d, di, h, hp = mlstm_dims(cfg)
-    b, s, _ = x.shape
+    must divide S. ``tp``: the model group, over which the heads are split
+    (:func:`mlstm_forward_tp`)."""
+    if tp is not None:
+        return mlstm_forward_tp(p, x, cfg, tp, chunk=chunk)
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    u, z = mlstm_up(p, xin)
+    return _mlstm_out(p, mlstm_cell(p, u, cfg, chunk=chunk), z, x, cfg)
+
+
+def mlstm_forward_tp(p, x, cfg, tp, *, chunk: int = 256):
+    """:func:`mlstm_forward` under the model group ``tp``: each rank
+    up-projects its heads' part of ``di``, gathers ``u`` (so its q, k and v
+    columns are the whole block's dot products over ``di``), runs the chunk
+    loop over its heads (the stabiliser ``m_g`` is per head), the RMSNorm
+    over its part of ``di`` with the sums of squares added over the group,
+    and a row-parallel ``down``; one reduce. Where the group does not split
+    the heads, every rank computes the whole block."""
+    _, di, h, _ = mlstm_dims(cfg)
+    shapes, axes = mlstm_shapes(cfg), mlstm_axes(cfg)
+    if not tp.splits(h):
+        return mlstm_forward(tp.whole(p, axes, shapes), x, cfg, chunk=chunk)
+    local = tp.read(p, axes, shapes, mlstm_reads(cfg, *tp.part(h), x.device))
+    u, z = mlstm_up(local, tp.copy(apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)))
+    hout = mlstm_cell(local, tp.gather_dim(u, -1, reduce_grad=True), cfg, chunk=chunk)
+    hout = norm_tp(local["out_norm"], hout.to(x.dtype), cfg.norm, di, cfg.norm_eps, tp)
+    return x + tp.reduce(mlstm_gate_down(local, hout, z))
+
+
+def mlstm_cell(p, u, cfg, *, chunk: int = 256):
+    """The chunkwise mLSTM of the heads whose leaves ``p`` holds, from all
+    of ``u`` [B, S, di]: the float32 cell output [B, S, heads·P] before
+    the out-norm."""
+    hp = mlstm_dims(cfg)[3]
+    b, s, _ = u.shape
     q_len = min(chunk, s)
     if s % q_len:
         raise ValueError(f"mlstm_forward: sequence length {s} is not a multiple of the "
                          f"chunk {q_len}")
     nc = s // q_len
-
-    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
-    u = torch.matmul(xin, p["up_x"])
-    z = torch.matmul(xin, p["up_z"])
     q, k, v, i_raw, f_raw = _mlstm_qkvg(p, u, cfg)
+    h = i_raw.shape[-1]
 
     m_g = torch.amax(i_raw, dim=1, keepdim=True)  # [B,1,H] global stabilizer
     iw = torch.exp(i_raw - m_g)  # [B,S,H]
@@ -120,11 +185,11 @@ def mlstm_forward(p, x, cfg, *, chunk: int = 256):
     kr = k.reshape(b, nc, q_len, h, hp)
     vr = v.reshape(b, nc, q_len, h, hp)
     ir = iw.reshape(b, nc, q_len, h)
-    iota = torch.arange(q_len, device=x.device)
+    iota = torch.arange(q_len, device=u.device)
     causal = (iota[:, None] >= iota[None, :]).float()
 
-    cst = torch.zeros((b, h, hp, hp), dtype=torch.float32, device=x.device)
-    nst = torch.zeros((b, h, hp), dtype=torch.float32, device=x.device)
+    cst = torch.zeros((b, h, hp, hp), dtype=torch.float32, device=u.device)
+    nst = torch.zeros((b, h, hp), dtype=torch.float32, device=u.device)
     nums, dens = [], []
     for c in range(nc):
         qc, kc, vc, ic, lc, lt = qr[:, c], kr[:, c], vr[:, c], ir[:, c], lcs_full[:, c], ltot[:, c]
@@ -146,7 +211,7 @@ def mlstm_forward(p, x, cfg, *, chunk: int = 256):
     den = torch.stack(dens, dim=1).reshape(b, s, h)
     thr = torch.exp(-m_g)  # [B,1,H]
     hout = num / torch.maximum(torch.abs(den), thr)[..., None]
-    return _mlstm_out(p, hout.reshape(b, s, di), z, x, cfg)
+    return hout.reshape(b, s, h * hp)
 
 
 def mlstm_decode(p, x, cfg, state):
@@ -154,8 +219,7 @@ def mlstm_decode(p, x, cfg, state):
     d, di, h, hp = mlstm_dims(cfg)
     b = x.shape[0]
     xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
-    u = torch.matmul(xin, p["up_x"])
-    z = torch.matmul(xin, p["up_z"])
+    u, z = mlstm_up(p, xin)
     q, k, v, i_raw, f_raw = _mlstm_qkvg(p, u, cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [B,H,P]
     i_raw, f_raw = i_raw[:, 0], f_raw[:, 0]  # [B,H]
@@ -243,42 +307,88 @@ def _slstm_cell(r, gin, st):
     return (c_new, n_new, h_new, m_new)
 
 
-def _slstm_gates(p, x, cfg):
-    """The four gates' input pre-activations, float32: [B, S, 4, H, dh]."""
-    d, h, dh = slstm_dims(cfg)
-    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+#: what the part of the sLSTM block that computes a rank's heads reads of
+#: the recurrence's leaves (``TensorParallel.read``'s map): its heads of
+#: ``w_in``, ``r`` and ``b`` (per head, block-diagonal) and its entries of
+#: ``out_norm`` (``d`` is head-major). The GeGLU FFN splits on ``ff``.
+SLSTM_READS = {"w_in": 2, "r": 1, "b": 1, "out_norm": {"scale": 0}}
+
+
+def ffn_leaves(p) -> dict:
+    """The GeGLU FFN's leaves under ``models/common.py``'s MLP keys."""
+    return {"wi": p["ffn_wi"], "wg": p["ffn_wg"], "wo": p["ffn_wo"]}
+
+
+def slstm_gates(p, xin):
+    """The four gates' input pre-activations of the heads whose leaves
+    ``p`` holds, from the normed input, float32: [B, S, 4, H, dh]."""
+    d, _, h, dh = p["w_in"].shape
     gin = torch.matmul(xin, p["w_in"].reshape(d, -1)).unflatten(-1, (4, h, dh))
     return gin.float() + p["b"][None, None]
 
 
-def _slstm_out(p, hout, x, cfg):
-    """Out-norm and residual, then the post-block GeGLU FFN (pf 4/3 ×2)."""
-    hout = apply_norm(p["out_norm"], hout.to(x.dtype), cfg.norm, cfg.norm_eps)
-    x = x + hout
-    hf = apply_norm(p["ln_ffn"], x, cfg.norm, cfg.norm_eps)
-    a = torch.matmul(hf, p["ffn_wi"])
-    g = torch.matmul(hf, p["ffn_wg"])
-    a = F.gelu(g.float(), approximate="tanh").to(x.dtype) * a
-    return x + torch.matmul(a, p["ffn_wo"])
-
-
-def slstm_forward(p, x, cfg):
-    d, h, dh = slstm_dims(cfg)
-    b, s, _ = x.shape
-    gin = _slstm_gates(p, x, cfg)  # [B,S,4,H,dh]
-    z0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-    st = (z0, z0, z0, torch.full((b, h, dh), M_INIT, dtype=torch.float32, device=x.device))
+def slstm_scan(r, gin):
+    """The step loop over ``gin`` [B, S, 4, H, dh] with the heads' ``r``:
+    every step's ``h``, [B, S, H·dh] float32."""
+    b, s, _, h, dh = gin.shape
+    z0 = torch.zeros((b, h, dh), dtype=torch.float32, device=gin.device)
+    st = (z0, z0, z0, torch.full((b, h, dh), M_INIT, dtype=torch.float32, device=gin.device))
     hs = []
     for t in range(s):
-        st = _slstm_cell(p["r"], gin[:, t], st)
+        st = _slstm_cell(r, gin[:, t], st)
         hs.append(st[2])
-    return _slstm_out(p, torch.stack(hs, dim=1).reshape(b, s, d), x, cfg)
+    return torch.stack(hs, dim=1).reshape(b, s, h * dh)
+
+
+def _slstm_out(p, hout, x, cfg, tp=None):
+    """Out-norm and residual, then the post-block GeGLU FFN (pf 4/3 ×2),
+    split over ``ff`` under a model group ``tp``."""
+    hout = apply_norm(p["out_norm"], hout.to(x.dtype), cfg.norm, cfg.norm_eps)
+    return _slstm_ffn(p, x + hout, cfg, tp)
+
+
+def _slstm_ffn(p, x, cfg, tp=None):
+    hf = apply_norm(p["ln_ffn"], x, cfg.norm, cfg.norm_eps)
+    if tp is None:
+        return x + apply_mlp(ffn_leaves(p), hf, "gelu")
+    mlp = functools.partial(apply_mlp, act="gelu")
+    return x + mlp_tp(ffn_leaves(p), hf, tp, _ffn_width(cfg.d_model), mlp)
+
+
+def slstm_forward(p, x, cfg, *, tp=None):
+    """``tp``: the model group, over which the heads are split
+    (:func:`slstm_forward_tp`)."""
+    if tp is not None:
+        return slstm_forward_tp(p, x, cfg, tp)
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    return _slstm_out(p, slstm_scan(p["r"], slstm_gates(p, xin)), x, cfg)
+
+
+def slstm_forward_tp(p, x, cfg, tp):
+    """:func:`slstm_forward` under the model group ``tp``: each rank's step
+    loop over its heads (``w_in``, ``r`` and ``b`` are per head: no
+    collective in the loop), the RMSNorm over its part of ``d`` with the
+    sums of squares added over the group, the parts gathered for the
+    residual, then the GeGLU FFN column- and row-parallel over ``ff``.
+    Where the group does not split the heads, every rank runs the whole
+    recurrence (the FFN splits where ``ff`` does)."""
+    d, h, _ = slstm_dims(cfg)
+    shapes, axes = slstm_shapes(cfg), slstm_axes(cfg)
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    if not tp.splits(h):
+        rec = tp.whole({k: p[k] for k in SLSTM_READS}, axes, shapes)
+        return _slstm_out(dict(p, **rec), slstm_scan(rec["r"], slstm_gates(rec, xin)), x, cfg,
+                          tp)
+    local = tp.read(p, axes, shapes, SLSTM_READS)
+    hout = slstm_scan(local["r"], slstm_gates(local, tp.copy(xin)))
+    hout = norm_tp(local["out_norm"], hout.to(x.dtype), cfg.norm, d, cfg.norm_eps, tp)
+    return _slstm_ffn(p, x + tp.gather_dim(hout, -1), cfg, tp)
 
 
 def slstm_decode(p, x, cfg, state):
     d, h, dh = slstm_dims(cfg)
     b = x.shape[0]
-    gin = _slstm_gates(p, x, cfg)[:, 0]
+    gin = slstm_gates(p, apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps))[:, 0]
     c, n, hh, m = _slstm_cell(p["r"], gin, (state["c"], state["n"], state["h"], state["m"]))
     return _slstm_out(p, hh.reshape(b, 1, d), x, cfg), {"c": c, "n": n, "h": hh, "m": m}
 
@@ -326,20 +436,24 @@ def param_axes(cfg) -> dict:
     return out
 
 
-def _logits(params, h, cfg):
+def _logits(params, h, cfg, tp=None):
     h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
-    return torch.matmul(h, params["embed"].t()).float()
+    return transformer.unembed(params, h, cfg, tp)
 
 
-def xlstm_forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False):
-    """``remat``: each block under ``torch.utils.checkpoint``."""
-    h = params["embed"][tokens]
+def xlstm_forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False,
+                  tp=None):
+    """``remat``: each block under ``torch.utils.checkpoint``. ``tp``: the
+    model group (``params`` then this rank's view of the stored leaves):
+    the embedding and the tied head vocab-parallel (the logits this rank's
+    vocab part), the mLSTM and sLSTM blocks head-parallel."""
+    h = transformer.embed_tokens(params, tokens, cfg, tp)
     for i in range(cfg.n_layers):
-        fn = functools.partial(mlstm_forward if is_mlstm(i) else slstm_forward, cfg=cfg)
+        fn = functools.partial(mlstm_forward if is_mlstm(i) else slstm_forward, cfg=cfg, tp=tp)
         h = remat_call(fn, remat, params[f"layer_{i}"], h)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, h, cfg), {}
+    return _logits(params, h, cfg, tp), {}
 
 
 def xlstm_decode_step(params, token, cache, pos, cfg):

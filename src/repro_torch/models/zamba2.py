@@ -5,7 +5,8 @@ Port of ``repro/models/zamba2.py``. The shared block is a full GQA
 transformer block (attention + gated MLP, ``transformer.apply_block``) with
 the same weights at every site; when decoding, each site keeps its own KV
 cache under ``attn_{i}``. The token embedding is a plain gather (no √d
-scale) and the head is tied to it.
+scale) and the head is tied to it (``transformer.embed_tokens`` and
+``unembed``, which also split them over a model group).
 """
 
 from __future__ import annotations
@@ -51,25 +52,29 @@ def param_axes(cfg) -> dict:
     return out
 
 
-def _logits(params, h, cfg):
+def _logits(params, h, cfg, tp=None):
     h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
-    return torch.matmul(h, params["embed"].t()).float()
+    return transformer.unembed(params, h, cfg, tp)
 
 
-def forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False):
+def forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False, tp=None):
     """``remat``: each Mamba2 block and each shared-block site under
-    ``torch.utils.checkpoint``."""
-    h = params["embed"][tokens]
+    ``torch.utils.checkpoint``. ``tp``: the model group (``params`` then
+    this rank's view of the stored leaves): the embedding and the tied head
+    vocab-parallel (the logits this rank's vocab part), the Mamba2 blocks
+    head-parallel (``mamba2.ssd_forward_tp``), the shared block's attention
+    and MLP split as the dense family's."""
+    h = transformer.embed_tokens(params, tokens, cfg, tp)
     sites = set(attn_sites(cfg))
-    ssm = functools.partial(mamba2.ssd_forward, cfg=cfg)
-    blk = functools.partial(transformer.apply_block, cfg=cfg)
+    ssm = functools.partial(mamba2.ssd_forward, cfg=cfg, tp=tp)
+    blk = functools.partial(transformer.apply_block, cfg=cfg, tp=tp)
     for i in range(cfg.n_layers):
         h = remat_call(ssm, remat, params[f"ssm_{i}"], h)
         if i in sites:
             h, _ = remat_call(blk, remat, params["shared"], h)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, h, cfg), {}
+    return _logits(params, h, cfg, tp), {}
 
 
 def decode_step(params, token, cache, pos, cfg):

@@ -16,7 +16,8 @@ from the reference's weights.
   mesh's axis names and sizes).
 * The trainer at ``--want-model 2`` (data 2, model 2) and 4 (data 1, model
   4), danube and granite smoke at accum 1 and 2, ``--compress int8`` once,
-  zamba2 (gather-only) once: per-step losses within rtol 1e-5 of the
+  zamba2 (its Mamba2 blocks head-parallel, the shared block split as the
+  dense family's) once: per-step losses within rtol 1e-5 of the
   reference's; the final global parameters within 1e-3 of each leaf's
   largest |value| (``PARAM_TOL``: the reference parts from itself across
   meshes by more than 1e-5); every rank holds the same global state; every rank's

@@ -31,7 +31,8 @@ DANUBE, GRANITE, ZAMBA2 = "h2o_danube_1_8b", "granite_moe_3b_a800m", "zamba2_7b"
 STEPS, BATCH, SEQ, WORLD = 3, 8, 16, 4
 # (arch, want_model, accum, compress): want_model 2 plans (data 2, model 2),
 # 4 plans (data 1, model 4). Each of danube and granite at both plans and
-# both accumulation counts, int8 once, the gather-only hybrid once; in two
+# both accumulation counts, int8 once, the hybrid once (the other families'
+# cases are in tests/torch_train_tp_families_check.py); in two
 # parts of about the same compile time
 TRAIN_CASES = [
     [(DANUBE, 2, 1, "none"), (DANUBE, 4, 2, "none"), (DANUBE, 2, 1, "int8"),
