@@ -7,9 +7,10 @@ Builds the hand kernels from this checkout's sources, holds each against
 its plain PyTorch version (the merge gain's and the segment sum's on CPU
 copies of the card's operands, where they add as the reference does; the
 pair cost's on the card), drives the port's two paths on the skitter
-stand-in at full size (V = 2,097,152, E = 11,095,298) with the default
-config — summarization (``repro_torch.core.summarize``) and query serving
-from an edge-list file (``repro_torch.launch.query_serve``) — and compares
+stand-in with the default config — summarization
+(``repro_torch.core.summarize``) at full size (V = 2,097,152, E =
+11,095,298) and query serving from an edge-list file of a quarter of it
+(``repro_torch.launch.query_serve``) — and compares
 card and CPU runs. Phases, one line each or a few:
 
   1. device: the card's name and power limit, CUDA, the kernels' build time;
@@ -28,8 +29,10 @@ card and CPU runs. Phases, one line each or a few:
      exact total costs against the ``index_add_`` pair they replaced, on the
      pair tables of round 1 and of the final partition;
   5. card against CPU on the golden fixture, with the same permutations;
-  6. edge-list input: the stand-in written as SNAP text with noise, read back
-     through ``load_graph`` (identical to ``generate``), then a cache hit;
+  6. edge-list input: the stand-in at a quarter of its size (V = 524,288,
+     E = 2,773,824; the full size's write and parse took 79.4 s) written as
+     SNAP text with noise, read back through ``load_graph`` (identical to
+     ``generate``), then a cache hit; phases 7-11 read this file;
   7. query serving end to end: ``query_serve.main`` on that file, 4096
      requests of all seven kinds in 64 slots; each kernel of the path
      launched (the summarizer's once per round);
@@ -45,7 +48,8 @@ card and CPU runs. Phases, one line each or a few:
   7d. where a serving step's time goes: engine build, PageRank, triangles,
      a 64-slot batch of each kind alone; eight steps under torch.profiler;
   8. checkpoint and resume through the launcher (``repro_torch.launch.chaos``)
-     on phase 6's file: a golden run, a run with ``--checkpoint-every 1``
+     on phase 6's file: a golden run (equal to phase 4's config run in this
+     process on that file's graph), a run with ``--checkpoint-every 1``
      (its wall, bytes a step, snapshot and write times), a run SIGTERM'd
      once step 6 is committed (exit 75) and one SIGKILL'd at step 12, each
      resumed, equal to the golden on every exact key and digest, with each
@@ -194,12 +198,28 @@ card and CPU runs. Phases, one line each or a few:
      of one equal to the ``--want-model 1`` run bit for bit, zamba2-7b (6
      bfloat16 layers) and xlstm-350m (4), batch 8 x 128, 3 steps; (c)
      zamba2-7b's full tree by the (data 2, model 4) plan: each model rank's
-     view bytes against the whole-leaf views, the transient gathers apart.
+     view bytes against the whole-leaf views, the transient gathers apart;
+  21. serving across ranks (no hand kernel on it: the reference's serve
+     table is GSPMD's): (a) ``repro_torch.launch.serve`` in an NCCL group
+     of one through ``--coordinator/--num-processes 1/--process-id 0``,
+     qwen2.5-14B at full width, 8 of its 48 bfloat16 layers (the depth cut
+     for the time limit), 8 requests in 8 slots: plan (1, 1), tokens and
+     cache equal to ``BatchServer`` without a group bit for bit; (b)
+     qwen2.5-14B's split decode step at full width, 2 float32 layers, m = 2
+     and 4 model ranks as threads of this process
+     (``models/tp_ranks.py::DecodeRanks``), the KV cache split on its
+     positions (max_len 512) and at m = 4 on its KV heads (510), 8 slots at
+     spread positions, 6 steps: the logits against the unsplit step on the
+     card (max |difference| over the largest |logit|, 1e-4), each variant's
+     step time; (c) granite-moe-3b-a800m's the same way at m = 2 and 4
+     (its 48 padded experts split); (d) a qwen2.5-14B rank's parameter and
+     KV-cache bytes at (1, 4), 48 layers, 8 slots x 4096, from the serve
+     table's shapes (the whole cache 6,442,450,944 bytes, a rank a quarter).
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a and 20b), and as the
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a, 20b and 21a), and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no
 result line, when CUDA is unavailable, when the package is missing, or when
 any phase fails. Imports nothing of the JAX package.
@@ -253,6 +273,13 @@ WIRE_SHAPES = {"w": (33, 7), "b": (13,), "s": ()}  # tests/torch_wire_check.py's
 SERVE_REQUESTS = 4096
 CPU_SERVE_REQUESTS = 1024  # phase 7b: the CPU engine serves the stream's first 1024
 SERVE_SLOTS = 64
+# phase 6's edge list, the file of phases 7-11: the skitter stand-in at a
+# quarter of its size (the full size's write and parse took 79.4 s)
+EDGE_LIST_SCALE = 0.25
+SERVE_RANKS_LAYERS = 8  # phase 21a: 8 of qwen2.5-14B's 48 layers (the time limit)
+# phase 21b/c: the split decode step against the unsplit on the card, of the
+# largest |logit| (float32, TF32 off; the parts add in another order)
+SPLIT_DECODE_TOL = 1e-4
 
 
 def free_port() -> int:
@@ -1186,7 +1213,11 @@ def run(tmp: str) -> int:
     # ---- 6. edge-list input -------------------------------------------------
     def phase_edge_list():
         from repro_torch.graphs import load_graph, write_edge_list
-        src, dst, v = ctx["src"], ctx["dst"], ctx["v"]
+        t0 = time.perf_counter()
+        src, dst, v = generate("skitter", seed=0, scale=EDGE_LIST_SCALE)
+        log(f"skitter stand-in at scale {EDGE_LIST_SCALE}: V={v} E={len(src)} generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ctx["file_graph"] = (src, dst, v)
         path = os.path.join(ctx["tmp"], "skitter.txt")
         t0 = time.perf_counter()
         write_edge_list(path, src, dst, v, shuffle=True, dup_frac=0.01, self_loops=100,
@@ -1214,7 +1245,7 @@ def run(tmp: str) -> int:
                 raise AssertionError(f"{name}: the graph read back is not generate()'s "
                                      f"(V {got.num_nodes} vs {v}, E {got.num_edges} vs "
                                      f"{len(src)})")
-        log("read back: identical to generate('skitter', seed=0, scale=1.0)")
+        log(f"read back: identical to generate('skitter', seed=0, scale={EDGE_LIST_SCALE})")
         ctx["edge_list"] = path
 
     smoke.phase("6 edge-list input", phase_edge_list)
@@ -1583,13 +1614,14 @@ def run(tmp: str) -> int:
         golden = chaos.run_to_completion(chaos.launcher_cmd(args), env, args.timeout)
         golden_s = time.perf_counter() - t0
         want = golden["digests"].split()[0]
-        vs_phase4 = "phase 4's run not at hand"
-        if "res_arrays" in ctx:
-            in_process = f"node2super={digest(ctx['res_arrays']['node2super'])}"
-            if want != in_process:
-                raise AssertionError(f"the launcher's golden ({want}) differs from phase 4's "
-                                     f"run ({in_process})")
-            vs_phase4 = "equal to phase 4's run (driver_chunk 8)"
+        # phase 4's config in this process on the file's graph (driver_chunk 8)
+        fsrc, fdst, fv = ctx["file_graph"]
+        run4 = summarize(fsrc, fdst, fv, ctx["cfg"], device="cuda")
+        in_process = f"node2super={digest(run4.node2super)}"
+        if want != in_process:
+            raise AssertionError(f"the launcher's golden ({want}) differs from phase 4's "
+                                 f"config run in this process ({in_process})")
+        vs_phase4 = "equal to phase 4's config run in this process (driver_chunk 8)"
         log(f"golden (no checkpoints, driver_chunk 2): {golden['iterations']} rounds, summarize "
             f"wall {golden['wall_s']:.2f} s ({golden_s:.1f} s with start-up and load), "
             f"launches {golden['kernel_launches']}; {want[:27]}..., {vs_phase4}")
@@ -1705,7 +1737,8 @@ def run(tmp: str) -> int:
 
         # the kernels at the new call sites, on round 1's compact tables
         sh = shard_edges_from_cache(ctx["edge_list"] + ".ssummcache", rank, world, dev)
-        be = launch.build_distributed_pipeline(ctx["cfg"], ctx["v"], sh.num_edges, dev)
+        be = launch.build_distributed_pipeline(ctx["cfg"], ctx["file_graph"][2], sh.num_edges,
+                                               dev)
         be.bind(sh.src, sh.dst)
         state = be.init()
         r = be.compact_tables(sh.src, sh.dst, state)
@@ -3584,6 +3617,180 @@ def run(tmp: str) -> int:
 
     smoke.phase("20 tensor-parallel compute of the other families", phase_train_tp_families)
 
+    # ---- 21. serving across ranks: the serve table and the split decode ----
+    def phase_serve_ranks():
+        import torch.distributed as tdist
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.dist.compress import tree_leaves
+        from repro_torch.dist.fsdp import Sharded
+        from repro_torch.dist.sharding import make_rules
+        from repro_torch.launch import serve as serve_lib
+        from repro_torch.launch import summarize as launch
+        from repro_torch.models import transformer
+        from repro_torch.models.api import build_model, param_axes, param_shapes
+        from repro_torch.models.tp_ranks import DecodeRanks
+        from repro_torch.runtime import plan_mesh
+        card = nvidia_smi("name,power.limit")
+        errors = []
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on for float32 matmuls")
+        qwen = get_config("qwen2_5_14b")
+
+        # (a) the launcher in an NCCL group of one, through the bootstrap's
+        # flags: 8 of qwen2.5-14B's 48 bfloat16 layers (the depth cut for the
+        # time limit), 8 slots; the tokens of BatchServer without a group
+        cut = dataclasses.replace(qwen, n_layers=SERVE_RANKS_LAYERS)
+        model = build_model(cut, dev)
+        params = model.init(0)
+        port = free_port()
+        argv = ["--arch", "qwen2_5_14b", "--slots", "8", "--requests", "8", "--prompt-len",
+                "16", "--gen-len", "16", "--max-len", "64", "--device", "cuda",
+                "--coordinator", f"localhost:{port}", "--num-processes", "1",
+                "--process-id", "0"]
+        launch.init_distributed(dev)  # NCCL, a world of one
+        try:
+            backend = tdist.get_backend()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            res, launched = serve_lib.serve(serve_lib.parse_args(argv), params, cfg=cut)
+            torch.cuda.synchronize()
+            ctx["serve_ranks_counts"] = ops.launch_counts()
+        finally:
+            tdist.destroy_process_group()
+        args = serve_lib.parse_args(argv)
+        plain = serve_lib.BatchServer(cut, slots=8, max_len=64, params=params, device=dev)
+        rng = np.random.default_rng(args.seed)
+        for rid in range(args.requests):
+            plain.submit(serve_lib.Request(rid=rid, prompt=rng.integers(
+                0, cut.vocab, args.prompt_len).astype(np.int32), max_new=args.gen_len))
+        while plain.step():
+            pass
+        got = {r.rid: list(r.out) for r in launched.done}
+        want = {r.rid: list(r.out) for r in plain.done}
+        same = got == want and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(launched.cache), tree_leaves(plain.cache)))
+        log(f"[{card}] 21a qwen2.5-14B full width, {cut.n_layers} of 48 bfloat16 layers, "
+            f"repro_torch.launch.serve in an NCCL group of one ({backend}) through "
+            f"--coordinator/--num-processes 1/--process-id 0: plan {res['plan']}, "
+            f"{res['requests']} requests, {res['tokens']} tokens, {res['decode_steps']} decode "
+            f"steps, median step {res['p50_decode_step_s'] * 1e3:.3f} ms, "
+            f"{res['tok_per_s']:.1f} tokens/s; tokens and cache equal to BatchServer without "
+            f"a group bit for bit {same}; launches of the hand kernels "
+            f"{ctx['serve_ranks_counts']}")
+        if not same or res["plan"] != {"data": 1, "model": 1} or res["world"] != 1:
+            errors.append(f"21a: the launcher in a group of one differs (plan {res['plan']})")
+        if any(ctx["serve_ranks_counts"].values()):
+            errors.append(f"21a: hand kernels launched on the LM path "
+                          f"{ctx['serve_ranks_counts']}")
+        # a data rank decodes its block of slots alone: the same step on 2
+        # of the 8 slots against those slots of the 8-slot step (bfloat16
+        # products of another shape may round otherwise; not asserted)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        token = torch.randint(0, cut.vocab, (8,), device=dev, generator=gen)
+        pos = torch.arange(8, device=dev) * 7
+        with torch.no_grad():
+            all8, _ = model.serve_step(params, {"token": token, "pos": pos,
+                                                "cache": model.init_cache(8, 64)})
+            two, _ = model.serve_step(params, {"token": token[:2], "pos": pos[:2],
+                                               "cache": model.init_cache(2, 64)})
+        log(f"21a a bfloat16 step of slots [0, 2) alone against the 8-slot step: equal bit "
+            f"for bit {torch.equal(two, all8[:2])}, max |difference| / max |logit| "
+            f"{float((two - all8[:2]).abs().max() / all8[:2].abs().max()):.3e}, greedy ids "
+            f"equal {torch.equal(two.argmax(-1), all8[:2].argmax(-1))}")
+        del model, params, launched, plain
+        torch.cuda.empty_cache()
+
+        # (b, c) the split decode step at full width, float32, 2 layers: m
+        # model ranks as threads of this process (models/tp_ranks.py) against
+        # the unsplit step on the card, 8 slots at spread positions
+        def split_decode(tag, cfg, variants):
+            model = build_model(cfg, dev)
+            params = model.init(0)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1)
+            slots, steps = 8, 6
+            for size, max_len in variants:
+                ranks = DecodeRanks(model, params, slots, max_len, size)
+                cache = model.init_cache(slots, max_len)
+                stride = (max_len - steps) // slots
+                worst = 0.0
+                for t in range(steps):
+                    token = torch.randint(0, cfg.vocab, (slots,), device=dev, generator=gen)
+                    pos = torch.arange(slots, device=dev) * stride + t
+                    with torch.no_grad():
+                        want, cache = model.serve_step(params, {"token": token, "pos": pos,
+                                                                "cache": cache})
+                    got = ranks.step(token, pos)
+                    worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+                state = {"cache": cache}
+
+                def whole_step():
+                    with torch.no_grad():
+                        _, state["cache"] = model.serve_step(
+                            params, {"token": token, "pos": pos, "cache": state["cache"]})
+
+                split_ms = time_cuda(torch, lambda: ranks.step(token, pos), launches=5,
+                                     batches=3)
+                whole_ms = time_cuda(torch, whole_step, launches=5, batches=3)
+                names = {1: "positions (kvseq)", 2: "KV heads", None: "none (whole)"}
+                log(f"[{card}] {tag} m={size} max_len={max_len}: cache split on "
+                    f"{names[ranks.kv_split()]}; max |split - unsplit| / max |logit| over "
+                    f"{steps} steps {worst:.3e} (limit {SPLIT_DECODE_TOL:g}); step "
+                    f"{split_ms:.3f} ms split ({size} ranks in one process) against "
+                    f"{whole_ms:.3f} ms unsplit (CUDA events, 5 steps back to back)")
+                profiled(torch, lambda: (ranks.step(token, pos), torch.cuda.synchronize()),
+                         f"[{card}] {tag} m={size} max_len={max_len}", "split decode step", 3)
+                if not worst <= SPLIT_DECODE_TOL:
+                    errors.append(f"{tag} m={size} max_len={max_len}: {worst:.3e}")
+                ranks.close()
+                del ranks, cache, state
+                torch.cuda.empty_cache()
+            del model, params
+            torch.cuda.empty_cache()
+
+        # max_len 512 at m = 2, 4 (the positions split), 510 at m = 4 (the 8
+        # KV heads split)
+        split_decode("21b qwen2.5-14B full width, 2 float32 layers",
+                     dataclasses.replace(qwen, n_layers=2, dtype="float32"),
+                     [(2, 512), (4, 512), (4, 510)])
+        granite = get_config("granite_moe_3b_a800m")
+        split_decode("21c granite-moe-3b-a800m full width, 2 float32 layers",
+                     dataclasses.replace(granite, n_layers=2, dtype="float32"),
+                     [(2, 512), (4, 512)])
+
+        # (d) a qwen2.5-14B rank's stored bytes at (1, 4), 48 layers, a cache
+        # of 8 slots x 4096, reckoned from the shapes the serve table gives
+        rules = make_rules(plan_mesh(4, global_batch=8, want_model=4), "serve")
+        itemsize = {torch.bfloat16: 2, torch.float32: 4}
+        small = dataclasses.replace(get_smoke_config("qwen2_5_14b"), n_layers=qwen.n_layers,
+                                    dtype=qwen.dtype, tie_embeddings=qwen.tie_embeddings,
+                                    qkv_bias=qwen.qkv_bias)
+        dtypes = [itemsize[x.dtype] for x in tree_leaves(build_model(small, "cpu").init(0))]
+        whole = transformer.init_cache(qwen, 8, 4096, torch.bfloat16, "meta")
+        cache_shapes = {k: {n: tuple(x.shape) for n, x in v.items()} for k, v in whole.items()}
+        per_rank = []
+        for r in range(4):
+            fs = Sharded(rules, r, param_shapes(qwen), param_axes(qwen), None, None)
+            cs = Sharded(rules, r, cache_shapes, transformer.cache_axes(qwen), None, None)
+            if len(dtypes) != len(fs.layouts):
+                raise AssertionError(f"{len(dtypes)} leaf types for {len(fs.layouts)} leaves")
+            p_bytes = sum(int(np.prod(s)) * e for s, e in zip(fs.local_shapes(), dtypes))
+            c_bytes = sum(int(np.prod(s)) * 2 for s in cs.local_shapes())
+            per_rank.append((p_bytes, c_bytes))
+        p_whole = sum(int(np.prod(lay.shape)) * e for lay, e in zip(fs.layouts, dtypes))
+        c_whole = transformer.kv_cache_bytes(qwen, 8, 4096)
+        log(f"21d qwen2.5-14B at (1, 4), 48 bfloat16 layers, 8 slots x 4096: parameters "
+            f"{p_whole} bytes whole, a rank's {[p for p, _ in per_rank]}; KV cache {c_whole} "
+            f"bytes whole, a rank's {[c for _, c in per_rank]} (split on "
+            f"{cs.layouts[0].spec})")
+        if c_whole != 6_442_450_944 or any(c != c_whole // 4 for _, c in per_rank):
+            errors.append(f"21d: cache bytes {c_whole}, a rank's {per_rank}")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("21 serving across ranks", phase_serve_ranks)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -3609,6 +3816,8 @@ def run(tmp: str) -> int:
         by_path["training at --want-model 2 (danube, phase 19a)"] = ctx["tp_counts"][k]
         by_path["training at --want-model 2 (zamba2, xLSTM, phase 20b)"] = ctx[
             "tp_families_counts"][k]
+        by_path["serving in an NCCL group of one (qwen2.5-14B, phase 21a)"] = ctx[
+            "serve_ranks_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

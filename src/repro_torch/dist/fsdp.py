@@ -18,8 +18,11 @@ leaf (:class:`Sharded`):
     of the exact mean over the data ranks, added in rank order: an
     all-to-all of shard-sized chunks, so no rank holds every rank's
     gradient;
-  * :meth:`Sharded.full`: shards to global leaves (checkpoints, the
-    trainer's returned state).
+  * :meth:`Sharded.full`: shards to global leaves on every rank (the
+    compressed all-reduce);
+  * :meth:`Sharded.full_to_host`: shards to global leaves in one rank's
+    host memory, one leaf at a time (checkpoints, the trainer's returned
+    state), so no device holds more than its shards and one leaf's parts.
 
 A leaf whose split the table drops is stored whole on the ranks it is not
 split over. In a world of one every shard is its global leaf, and nothing
@@ -82,6 +85,13 @@ class Sharded:
 
     def __init__(self, rules, rank: int, shapes, axes, data, model):
         self.rules, self.rank, self.data, self.model = rules, rank, data, model
+        self._shapes = [tuple(s) for s in _dict_leaves(shapes)]
+        self._axes = _dict_leaves(axes)
+        self.layouts = self.layouts_of(rank)
+
+    def layouts_of(self, rank: int) -> list:
+        """Every leaf's :class:`LeafLayout` on rank ``rank`` of the plan."""
+        rules = self.rules
         coords, sizes = rules.coords(rank), rules.sizes
         dp_axes = tuple(a for a in rules.axes if a != "model")
         # the data group's ranks, in rank order: every (pod, data) coordinate
@@ -92,9 +102,8 @@ class Sharded:
             for ax in reversed(dp_axes):
                 rest, c[ax] = divmod(rest, sizes[ax])
             members.append(c)
-        self.layouts = []
-        for shape, ax in zip(_dict_leaves(shapes), _dict_leaves(axes)):
-            shape = tuple(shape)
+        layouts = []
+        for shape, ax in zip(self._shapes, self._axes):
             spec = rules.spec(ax, shape)
             data_dim = model_dim = None
             data_kept = ()
@@ -105,7 +114,7 @@ class Sharded:
                 if dkept:
                     data_dim, data_kept = i, dkept
             used = {a for kept in spec for a in kept}
-            self.layouts.append(LeafLayout(
+            layouts.append(LeafLayout(
                 shape=shape, spec=spec, data_dim=data_dim,
                 data_parts=int(np.prod([sizes[a] for a in data_kept])) if data_kept else 1,
                 data_index=_part_index(coords, sizes, data_kept),
@@ -113,6 +122,7 @@ class Sharded:
                 model_dim=model_dim, model_parts=sizes["model"] if model_dim is not None else 1,
                 model_index=coords.get("model", 0) if model_dim is not None else 0,
                 owner=all(coords[a] == 0 for a in rules.axes if a not in used)))
+        return layouts
 
     @property
     def trivial(self) -> bool:
@@ -120,9 +130,13 @@ class Sharded:
         return self.rules.n_ranks == 1
 
     # ------------------------------------------------------------- storage
-    def shard(self, tree):
+    def shard(self, tree, device=None):
         """This rank's shard of every leaf of a global tree (a copy, so the
-        global tree can go)."""
+        global tree can go). ``device``: copy each shard there (a tree in
+        host memory, read leaf by leaf; in a world of one each whole leaf is
+        copied), else the shards stay where the leaves are."""
+        if device is not None:
+            return self._map(lambda x, lay: x[tuple(lay.slices())].to(device, copy=True), tree)
         if self.trivial:
             return tree
         return self._map(lambda x, lay: x[tuple(lay.slices())].clone(), tree)
@@ -139,7 +153,8 @@ class Sharded:
         return self._map(one, shards)
 
     def full(self, shards):
-        """The global leaves (every rank gets them)."""
+        """The global leaves, on every rank's device (the compressed
+        all-reduce takes the whole gradient)."""
         if self.trivial:
             return shards
 
@@ -148,6 +163,39 @@ class Sharded:
                 return x
             return torch.cat(self.model.gather(x).unbind(0), dim=lay.model_dim)
         return self._map(one, self.views(shards))
+
+    def full_to_host(self, shards, dst: int = 0):
+        """The global leaves in host memory on rank ``dst``, None on every
+        other rank, one leaf at a time: every rank sends its shard of a leaf
+        to ``dst`` (a gather over the default group), which copies one part
+        of each shard into the whole leaf in host memory and frees the parts
+        before the next leaf. No rank holds a whole leaf on its device. In a
+        world of one, the shards themselves (no copy)."""
+        if self.trivial:
+            return shards
+        dist = torch.distributed
+        world = dist.get_world_size()
+        if world != self.rules.n_ranks:
+            raise ValueError(f"a plan of {self.rules.n_ranks} ranks in a group of {world}")
+        main = self.rank == dst
+        ranks = [self.layouts_of(r) for r in range(world)] if main else None
+
+        def one(i, x):
+            parts = [torch.empty_like(x) for _ in range(world)] if main else None
+            dist.gather(x.contiguous(), parts, dst=dst)
+            if not main:
+                return None
+            host = torch.empty(self._shapes[i], dtype=x.dtype)
+            seen = set()
+            for r, part in enumerate(parts):
+                lay = ranks[r][i]
+                if (lay.data_index, lay.model_index) not in seen:
+                    seen.add((lay.data_index, lay.model_index))
+                    host[tuple(lay.slices())].copy_(part)
+            return host
+
+        leaves = [one(i, x) for i, x in enumerate(self._leaves(shards))]
+        return tree_unflatten(shards, leaves) if main else None
 
     def reduce(self, grads, mean: bool = True):
         """This rank's shard of the gradient of its views: with ``mean``
@@ -179,10 +227,19 @@ class Sharded:
         AdamW moments of each."""
         return sum(int(x.numel()) * (x.element_size() + 8) for x in tree_leaves(shards))
 
-    def _map(self, fn, tree):
+    def local_shapes(self) -> list:
+        """The shape of this rank's shard of every leaf, in tree order."""
+        return [tuple(len(range(*sl.indices(n))) for sl, n in zip(lay.slices(), lay.shape))
+                for lay in self.layouts]
+
+    def _leaves(self, tree) -> list:
         leaves = tree_leaves(tree)
         if len(leaves) != len(self.layouts):
             raise ValueError(f"{len(leaves)} leaves against a layout of {len(self.layouts)}")
+        return leaves
+
+    def _map(self, fn, tree):
+        leaves = self._leaves(tree)
         return tree_unflatten(tree, [fn(x, lay) for x, lay in zip(leaves, self.layouts)])
 
 

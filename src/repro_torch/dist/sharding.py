@@ -1,8 +1,8 @@
-"""Supernode ownership for the edge-sharded backend, and the trainer's rule
-table.
+"""Supernode ownership for the edge-sharded backend, and the trainer's and
+the server's rule tables.
 
 Port of ``repro/dist/sharding.py``'s ``owner_hash_np`` and ``MeshRules.owner``,
-and of its ``"train"`` table (:func:`make_rules`, :class:`Rules`).
+and of its ``"train"`` and ``"serve"`` tables (:func:`make_rules`, :class:`Rules`).
 In ``"summarize"`` mode the reference splits the edge dimension over every
 mesh axis (``MeshRules.edge_spec``), so device ``d``'s shard is the ``d``-th
 contiguous block, where ``d`` is ``jax.lax.axis_index`` over all axes. A flat
@@ -34,10 +34,10 @@ def owner_hash(ids: torch.Tensor, salt: int, n_ranks: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The train-mode rule table (the reference's ``make_rules(mesh, "train")``)
+# The rule tables (the reference's ``make_rules(mesh, "train" | "serve")``)
 # ---------------------------------------------------------------------------
 #
-# Port of ``_mode_table``'s ``"train"`` entries, the override-free
+# Port of ``_mode_table``'s ``"train"`` and ``"serve"`` entries, the override-free
 # ``make_rules`` and ``MeshRules.spec``'s shape-aware assignment, on a
 # ``MeshPlan`` (``runtime/elastic.py``) instead of a jax mesh. Rank ``r`` is
 # the reference's device at position ``r`` of the plan's mesh in row-major
@@ -47,7 +47,7 @@ def owner_hash(ids: torch.Tensor, salt: int, n_ranks: int) -> torch.Tensor:
 TP_AXES = ("ff", "heads", "kv_heads", "vocab", "experts", "attn_embed")
 #: every logical name the reference's tables define
 LOGICAL = TP_AXES + ("batch", "seq", "kvseq", "embed", "act_embed", "edges")
-MODES = ("train",)
+MODES = ("train", "serve")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,16 @@ class Rules:
             out.append(tuple(kept))
         return tuple(out)
 
+    def block(self, rank: int, name: str, n: int) -> tuple[int, int]:
+        """Rank ``rank``'s ``[start, stop)`` of a dimension of ``n`` named
+        ``name`` (all of it where the table does not split it)."""
+        coords, idx, parts = self.coords(rank), 0, 1
+        for ax in self.spec((name,), (n,))[0]:
+            idx = idx * self.sizes[ax] + coords[ax]
+            parts *= self.sizes[ax]
+        per = n // parts
+        return idx * per, (idx + 1) * per
+
     def split_dim(self, logical_axes, shape, axis: str = "model") -> int | None:
         """The dimension of a ``shape`` leaf split over ``axis`` (None: none)."""
         for i, kept in enumerate(self.spec(logical_axes, shape)):
@@ -105,10 +115,12 @@ class Rules:
 
 def make_rules(plan, mode: str = "train") -> Rules:
     """The rule table of ``plan`` (a :class:`~repro_torch.runtime.MeshPlan`)
-    in ``mode``: data parallelism over ``(pod, data)``, tensor parallelism
-    over ``model``, and FSDP's ``embed`` parameter dimension over the data
-    axes. The port trains only: the serve, summarize and eval tables have no
-    sharded user in it."""
+    in ``mode``. Both modes put the batch over ``(pod, data)`` and the
+    tensor-parallel dimensions over ``model``. ``"train"`` adds FSDP: the
+    ``embed`` parameter dimension over the data axes. ``"serve"`` keeps the
+    parameters whole on the data axes and puts ``seq`` and ``kvseq`` over
+    ``model`` (a KV cache split on its positions: flash-decoding). The
+    summarize and eval tables have no sharded user in the port."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port has {MODES}")
     dp = tuple(a for a in ("pod", "data") if a in plan.axes)
@@ -116,5 +128,9 @@ def make_rules(plan, mode: str = "train") -> Rules:
     table = {name: () for name in LOGICAL}
     table.update({name: tp for name in TP_AXES})
     table["batch"] = dp
-    table["embed"] = dp
+    if mode == "train":
+        table["embed"] = dp
+    else:
+        table["seq"] = tp
+        table["kvseq"] = tp
     return Rules(shape=tuple(plan.shape), axes=tuple(plan.axes), table=table)

@@ -44,8 +44,11 @@ the wire bytes it measures must equal ``P × payload_bytes``. Checkpoints
 hold ``(params, AdamWState)``: rank 0 writes them, keep-N, asynchronously
 every ``--ckpt-every`` steps, and at the step reached when the loop ends
 unless that step was just saved (the reference saves again, at
-``--steps``); ``--resume`` restores rank 0's latest on every rank and
-regenerates the token stream from that step. SIGTERM/SIGINT on any rank
+``--steps``). The state reaches rank 0's host memory one leaf at a time
+(``Sharded.full_to_host``), so no card holds more than its shards and one
+leaf's parts. ``--resume`` maps rank 0's latest into host memory on every
+rank, copies each rank's shard of each leaf to its card, and regenerates the
+token stream from that step. SIGTERM/SIGINT on any rank
 saves and stops every rank at the same step. Rank 0 prints the reference's
 JSON keys plus ``device``, ``world``, the median step and the peak device
 memory. It runs on the card unless ``--device cpu`` is given.
@@ -142,9 +145,10 @@ def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None 
 
 @dataclasses.dataclass
 class Trained:
-    """A run's printed result, its final global state (on every rank; None
-    where the caller asked for none), every step's loss and wall, and the
-    parameter shards this rank stored."""
+    """A run's printed result, its final global state (across ranks in rank
+    0's host memory and None on every other rank; in a world of one on its
+    device; None where the caller asked for none), every step's loss and
+    wall, the parameter shards this rank stored and the optimizer's step."""
 
     result: dict
     params: dict | None
@@ -153,6 +157,7 @@ class Trained:
     step_s: list
     rank: int = 0
     shards: dict | None = None  # this rank's stored parameter shards
+    step: int = 0  # the optimizer's step at the end
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -187,10 +192,9 @@ def train(args: argparse.Namespace, params=None, cfg=None, keep_state: bool = Tr
     device) replaces the seeded initialisation, ``cfg`` the model config of
     ``--arch``/``--smoke``, when given. Across ranks every rank calls it
     with the same arguments; every rank returns the same losses and state.
-    ``keep_state``: return the final global ``(params, AdamWState)``, which
-    every rank gathers whole (the launcher's :func:`main` asks for none: a
-    model whose state fits a rank only sharded, zamba2-7b over 4 cards, then
-    ends as it ran; a checkpoint still gathers it)."""
+    ``keep_state``: return the final global ``(params, AdamWState)``,
+    gathered one leaf at a time into rank 0's host memory (every other rank
+    gets None; the launcher's :func:`main` asks for none)."""
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     run = RunConfig(lr=args.lr, total_steps=args.steps,
@@ -239,7 +243,8 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params,
     wire_expected = world.size * payload_bytes(params, ccfg)
 
     # checkpoints hold the global state: rank 0 writes them; every rank
-    # restores rank 0's latest and shards it by this run's plan
+    # restores rank 0's latest into host memory (the files mapped, not read
+    # whole) and copies its shard of each leaf to its device, leaf by leaf
     start_step = 0
     ckpt = None
     restored = None
@@ -250,21 +255,29 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params,
             step = int(world.gather(torch.tensor(-1 if latest is None else latest,
                                                  device=dev))[0])
             if step >= 0:
-                restored, start_step, _ = ckpt.restore((params, adamw_init(params)), step=step)
-                params = restored[0]
+                restored, start_step, _ = ckpt.restore(_host_template(params), step=step,
+                                                       device="cpu", mmap=True)
                 if main_rank:
                     print(f"resumed from step {start_step}")
-    shards = fs.shard(params)
     if restored is None:
+        shards = fs.shard(params)
         opt = adamw_init(shards)
     else:
-        opt = AdamWState(restored[1].step, fs.shard(restored[1].mu), fs.shard(restored[1].nu))
+        shards = fs.shard(restored[0], dev)
+        opt = AdamWState(restored[1].step.to(dev), fs.shard(restored[1].mu, dev),
+                         fs.shard(restored[1].nu, dev))
     del params, restored
     stored = fs.stored_bytes(shards)
 
     def global_state():
-        """The global ``(params, AdamWState)`` on every rank (collective)."""
-        return fs.full(shards), AdamWState(opt.step, fs.full(opt.mu), fs.full(opt.nu))
+        """The global ``(params, AdamWState)`` (collective): in rank 0's host
+        memory, gathered one leaf at a time, None on every other rank; in a
+        world of one the state itself, on its device."""
+        p = fs.full_to_host(shards)
+        mu, nu = fs.full_to_host(opt.mu), fs.full_to_host(opt.nu)
+        if p is None:
+            return None
+        return p, AdamWState(opt.step.cpu() if world.size > 1 else opt.step, mu, nu)
 
     guard = PreemptionGuard()
     monitor = StragglerMonitor()
@@ -272,6 +285,7 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params,
                                           f"{ev.step_time:.2f}s = {ev.ratio:.1f}x mean"))
 
     losses, step_s = [], []
+    preempted = False
     wire_per_step = None
     t_begin = time.time()
     try:
@@ -290,28 +304,33 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params,
             if ckpt and (step + 1) % run.checkpoint_every == 0:
                 state = global_state()
                 if main_rank:
-                    ckpt.save_async(step + 1, state)
+                    ckpt.save_async(step + 1, state, copy=world.size == 1)
                 del state
             # every rank stops at the same step (a signal lands on one rank)
             if global_preempt(guard.preempted):
-                state = global_state() if ckpt else None
+                preempted = True
+                # a step just queued for the writer thread is committed there;
+                # saving it here too would race that write
+                queued = (step + 1) % run.checkpoint_every == 0
+                state = global_state() if ckpt and not queued else None
                 if main_rank:
                     print("preemption signal: saving + exiting")
                     if ckpt:
-                        # a step just queued for the writer thread is committed
-                        # there; saving it here too would race that write
                         ckpt.wait()
-                        if ckpt.latest_step() != step + 1:
-                            ckpt.save(step + 1, state)
+                        if state is not None:
+                            ckpt.save(step + 1, state, copy=world.size == 1)
                 del state
                 break
+        # the loop has saved the step it ended at, every --ckpt-every or on a signal
+        end = start_step + len(losses)
+        saved = bool(losses) and (preempted or end % run.checkpoint_every == 0)
         params = opt_state = None
-        if keep_state or ckpt:
-            params, opt_state = global_state()
+        if keep_state or (ckpt and not saved):
+            params, opt_state = global_state() or (None, None)
         if ckpt and main_rank:
             ckpt.wait()
-            if ckpt.latest_step() != start_step + len(losses):  # not saved by the loop
-                ckpt.save(start_step + len(losses), (params, opt_state))
+            if not saved and ckpt.latest_step() != end:
+                ckpt.save(end, (params, opt_state), copy=world.size == 1)
         world.barrier()  # the last commit is on disk before any rank returns
     finally:
         guard.restore()
@@ -337,7 +356,18 @@ def _train(args, cfg, run: RunConfig, dev: torch.device, params,
         result["wire_bytes_per_step"] = wire_per_step
         result["wire_bytes_expected"] = wire_expected
     return Trained(result=result, params=params, opt=opt_state, losses=losses, step_s=step_s,
-                   rank=world.rank, shards=shards)
+                   rank=world.rank, shards=shards, step=int(opt.step))
+
+
+def _host_template(params):
+    """``(params, AdamWState)``'s shapes and dtypes as ``meta`` tensors: a
+    restore template that allocates nothing."""
+    def meta(x, dtype=None):
+        return torch.empty(x.shape, dtype=dtype or x.dtype, device="meta")
+
+    moment = functools.partial(tree_map, lambda x: meta(x, torch.float32))
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    return tree_map(meta, params), AdamWState(step, moment(params), moment(params))
 
 
 def main(argv=None, params=None) -> dict:

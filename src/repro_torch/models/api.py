@@ -7,8 +7,9 @@ Port of ``repro/models/api.py``. :class:`Model` gives
     loss(params, batch)               → (scalar, metrics)
     train_step(params, opt, batch, run) → (params, opt, metrics)
     prefill_step(params, batch)       → last-position logits [B, V]
-    serve_step(params, batch)         → (logits [B, V], cache)   decode
+    serve_step(params, batch, tp)     → (logits [B, V], cache)   decode
     init_cache(batch, seq_len)        → decode cache (dict tree)
+    cache_axes()                      → the cache's logical axes
 
 on the model's device (``"cuda"`` unless the caller asks for the CPU). The
 dense and MoE families (the MoE block plugs into the transformer block),
@@ -26,7 +27,12 @@ MLPs over ``ff``, the MoE block over its experts or ``ff``; a layer the
 group does not divide reads its leaves whole (replicated compute, as the
 reference's rule table replicates it).
 :func:`param_shapes` gives each family's tree of leaf shapes, and
-:func:`param_axes` their logical sharding axes (the trainer's rule table).
+:func:`param_axes` their logical sharding axes (the rule tables);
+``Model.cache_axes()`` the decode cache's. Under a serve table's model
+group (``serve_step(..., tp=, kv_len=)``) the dense, MoE and VLM families
+decode tensor-parallel on a split KV cache
+(``transformer.decode_step``); the hybrid, xLSTM and encoder-decoder
+decode steps are not split yet and raise there.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.fsdp import Sharded
 from repro_torch.dist.microbatch import value_and_grad
 from repro_torch.models import transformer, whisper, xlstm, zamba2
 from repro_torch.models.common import DTYPES, dense_init, tree_map
@@ -56,8 +63,11 @@ class Model:
     # group (dist/tensor_parallel.py), params then this rank's view of the
     # stored leaves
     forward: Callable
-    decode: Callable  # (params, batch) -> (logits, cache)
+    # (params, batch, tp=None, kv_len=None) -> (logits, cache); tp: a serve
+    # table's model group, the cache then this rank's shard of kv_len positions
+    decode: Callable
     init_cache: Callable  # (batch, seq_len) -> cache
+    cache_axes: Callable  # () -> the logical axes of init_cache's leaves
     # Admission seam for recurrent families: clear_slot(cache, s) zeroes slot
     # s of every leaf; restore_slots(new, old, s) keeps slot s of ``new`` and
     # every other slot of ``old``. A KV cache needs neither (position masking).
@@ -65,10 +75,13 @@ class Model:
     restore_slots: Callable | None = None
     prefix_len: int = 0  # positions before the tokens (the VLM's image)
 
-    def init(self, seed: int = 0):
+    def init(self, seed: int = 0, place=None):
+        """The seeded parameters; ``place(key, subtree)`` (the dense, MoE
+        and VLM families) keeps each top-level entry as it is drawn
+        (``transformer.init_lm``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return self.init_fn(gen)
+        return self.init_fn(gen) if place is None else self.init_fn(gen, place)
 
     def loss(self, params, batch, remat: bool = True, dp=None, tp=None):
         """``(total, metrics)``; ``dp``, the data-parallel group, reaches
@@ -97,8 +110,8 @@ class Model:
             grad_clip=run.grad_clip)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
-    def serve_step(self, params, batch):
-        return self.decode(params, batch)
+    def serve_step(self, params, batch, tp=None, kv_len=None):
+        return self.decode(params, batch, tp, kv_len)
 
     def prefill_step(self, params, batch):
         """Prefill: full-sequence forward, last-position logits only."""
@@ -113,26 +126,29 @@ def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
         return transformer.forward(params, batch["tokens"], cfg, last_only=last_only,
                                    remat=remat, dp=dp, tp=tp)
 
-    def dec(params, batch):
+    def dec(params, batch, tp=None, kv_len=None):
         return transformer.decode_step(params, batch["token"], batch["cache"], batch["pos"],
-                                       cfg)
+                                       cfg, tp, kv_len)
 
     return Model(
         cfg=cfg,
         device=dev,
-        init_fn=lambda gen: transformer.init_lm(gen, cfg, dtype, dev),
+        init_fn=lambda gen, place=None: transformer.init_lm(gen, cfg, dtype, dev, place),
         forward=fwd,
         decode=dec,
         init_cache=lambda b, s: transformer.init_cache(cfg, b, s, dtype, dev),
+        cache_axes=lambda: transformer.cache_axes(cfg),
     )
 
 
 def _vlm_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
 
-    def init(gen):
-        p = transformer.init_lm(gen, cfg, dtype, dev)
+    def init(gen, place=None):
+        p = transformer.init_lm(gen, cfg, dtype, dev, place)
         p["img_proj"] = dense_init(gen, (cfg.img_dim, cfg.d_model), 0, dtype, dev)
+        if place is not None:
+            p["img_proj"] = place("img_proj", p["img_proj"])
         return p
 
     def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
@@ -164,31 +180,42 @@ def restore_slots(new, old, s: int):
     return tree_map(one, new, old)
 
 
+def _whole_decode(decode, cfg):
+    """A family's decode step that is not split over a model group yet."""
+    def dec(params, batch, tp=None, kv_len=None):
+        if tp is not None and tp.size > 1:
+            _split_decode_family(cfg)
+        return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
+
+    return dec
+
+
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
-                      init_cache) -> Model:
+                      init_cache, cache_axes) -> Model:
     def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
         del dp  # no MoE block
         return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat, tp=tp)
 
-    def dec(params, batch):
-        return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
-
-    return Model(cfg=cfg, device=dev, init_fn=init, forward=fwd, decode=dec,
-                 init_cache=init_cache, clear_slot=clear_slot, restore_slots=restore_slots)
+    return Model(cfg=cfg, device=dev, init_fn=init, forward=fwd,
+                 decode=_whole_decode(decode, cfg), init_cache=init_cache,
+                 cache_axes=lambda: cache_axes(cfg), clear_slot=clear_slot,
+                 restore_slots=restore_slots)
 
 
 def _hybrid_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
     return _recurrent_family(
         cfg, dev, lambda gen: zamba2.init_zamba2(gen, cfg, dtype, dev), zamba2.forward,
-        zamba2.decode_step, lambda b, s: zamba2.init_cache(cfg, b, s, dtype, dev))
+        zamba2.decode_step, lambda b, s: zamba2.init_cache(cfg, b, s, dtype, dev),
+        zamba2.cache_axes)
 
 
 def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
     return _recurrent_family(
         cfg, dev, lambda gen: xlstm.init_xlstm_lm(gen, cfg, dtype, dev), xlstm.xlstm_forward,
-        xlstm.xlstm_decode_step, lambda b, s: xlstm.init_xlstm_cache(cfg, b, s, dev))
+        xlstm.xlstm_decode_step, lambda b, s: xlstm.init_xlstm_cache(cfg, b, s, dev),
+        xlstm.xlstm_cache_axes)
 
 
 def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
@@ -201,12 +228,11 @@ def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
         return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only,
                                     tp=tp), {}
 
-    def dec(params, batch):
-        return whisper.decode_step(params, batch["token"], batch["cache"], batch["pos"], cfg)
-
     return Model(cfg=cfg, device=dev,
                  init_fn=lambda gen: whisper.init_whisper(gen, cfg, dtype, dev), forward=fwd,
-                 decode=dec, init_cache=lambda b, s: whisper.init_cache(cfg, b, s, dtype, dev))
+                 decode=_whole_decode(whisper.decode_step, cfg),
+                 init_cache=lambda b, s: whisper.init_cache(cfg, b, s, dtype, dev),
+                 cache_axes=lambda: whisper.cache_axes(cfg))
 
 
 _FAMILIES = {
@@ -250,3 +276,50 @@ def param_axes(cfg: ModelConfig) -> dict:
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
     return _FAMILIES[cfg.family](cfg, resolve_device(device))
+
+
+def _shape_tree(tree) -> dict:
+    """A dict tree of tensors as the same tree of their shapes."""
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def _split_decode_family(cfg) -> None:
+    """Raise for a family whose decode step has no tensor-parallel form yet."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(f"{cfg.family}'s decode step has no tensor-parallel form "
+                                  f"yet; serve it with one model rank")
+
+
+def shard_params(model: Model, rules, rank: int, params=None, seed: int = 0):
+    """Rank ``rank``'s shards of the parameters under a serve table
+    ``rules`` (whole on the data axes): of ``params`` (whole) when given,
+    else of the seeded initialisation, drawn one top-level entry at a time
+    and sharded as it comes, so the whole tree is never on the device.
+    Without a model axis, the whole tree."""
+    cfg = model.cfg
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    if rules.sizes.get("model", 1) == 1:
+        return model.init(seed) if params is None else params
+    _split_decode_family(cfg)
+    if params is not None:
+        return Sharded(rules, rank, shapes, axes, None, None).shard(params)
+    return model.init(seed, lambda key, tree: Sharded(
+        rules, rank, shapes[key], axes[key], None, None).shard(tree))
+
+
+def shard_cache(model: Model, rules, rank: int, slots: int, max_len: int):
+    """Rank ``rank``'s shard of the decode cache of ``slots`` × ``max_len``
+    under ``rules``, made at its own shape: its block of slots (where the
+    data axes divide them), and, on a model axis, its part of every KV leaf
+    (zeros, as the dense families' ``init_cache``)."""
+    if rules.sizes.get("model", 1) == 1:
+        start, stop = rules.block(rank, "batch", slots)
+        return model.init_cache(stop - start, max_len)
+    _split_decode_family(model.cfg)
+    whole = transformer.init_cache(model.cfg, slots, max_len, DTYPES[model.cfg.dtype], "meta")
+    fs = Sharded(rules, rank, _shape_tree(whole), model.cache_axes(), None, None)
+    local = iter(fs.local_shapes())
+    return tree_map(lambda x: torch.zeros(next(local), dtype=x.dtype, device=model.device),
+                    whole)

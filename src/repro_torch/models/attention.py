@@ -3,7 +3,10 @@
 Port of ``repro/models/attention.py``: self-attention, and whisper's
 ``cross_attention`` and ``project_cross_kv`` (the reference's ``_mask`` is
 called nowhere there and is left out); under a model group both are
-head-parallel (:func:`attention_tp`, :func:`cross_attend_tp`).
+head-parallel (:func:`attention_tp`, :func:`cross_attend_tp`), and the
+cached decode runs on a KV cache split by the serve table
+(:func:`attention_decode_tp`: over its positions, flash-decoding, or over
+its KV heads).
 Layouts are the reference's:
 
     q        [B, S, H, hd]          k/v  [B, T, K, hd]
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dist.data_parallel import add_in_order
 from repro_torch.models.common import dense_init, rope
 from repro_torch.models.flash import blockwise_attention
 
@@ -187,6 +191,123 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos, *, window=None,
     mask = torch.where(m, 0.0, NEG_INF)[:, None, None, None, :]
     out = mha(q, cache_k, cache_v, mask)
     return _out(p, out), cache_k, cache_v
+
+
+def _project_whole(x, w, axes, shape, tp):
+    """``_proj(x, w)`` for every head on every model rank, from ``w`` as the
+    rule table stores it: where its ``d_model`` rows are split, each rank
+    multiplies its columns of ``x`` by its rows and the partial products are
+    added in rank order; else the leaf is read whole."""
+    if tp.rules.split_dim(axes, shape, "model") == 0:
+        d0, d1 = tp.part(shape[0])
+        return tp.sum(_proj(x[..., d0:d1], w))
+    return _proj(x, tp.take(w, axes, shape, None, partial=False))
+
+
+def _decode_qkv(p, x, cfg, tp):
+    """The new token's q, k and v for every head, on every model rank."""
+    axes, shapes = _tree(p, cfg, x.shape[-1])
+    q, k, v = (_project_whole(x, p[w], axes[w], shapes[w], tp) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = (t + tp.take(p[b], axes[b], shapes[b], None, partial=False)
+                   for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
+    return q, k, v
+
+
+def _decode_mask(pos_k, posv, window):
+    """The per-slot causal (+ window) mask of positions ``pos_k``:
+    [B, 1, 1, 1, T] over the [B, K, g, S, T] score layout."""
+    m = pos_k[None, :] <= posv[:, None]
+    if window is not None:
+        m &= (posv[:, None] - pos_k[None, :]) < window
+    return torch.where(m, 0.0, NEG_INF)[:, None, None, None, :]
+
+
+def softmax_part(q, k, v, mask):
+    """One block of positions' part of the grouped decode softmax, float32:
+    the block's max score ``m`` [B, K, g, 1, 1], its sum of exponentials
+    ``l`` (same shape) and ``Σ exp(s - m)·v`` ``o`` [B, K, g, 1, hd]."""
+    b, s, h, hd = q.shape
+    kk = k.shape[2]
+    qg = q.reshape(b, s, kk, h // kk, hd)
+    scores = torch.einsum("bskgx,btkx->bkgst", qg, k).float()
+    scores = scores / float(np.sqrt(np.float32(hd))) + mask
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    return m, e.sum(dim=-1, keepdim=True), torch.einsum("bkgst,btkx->bkgsx", e, v.float())
+
+
+def combine_parts(ms, ls, os_, dtype):
+    """The blocks' parts (lists in block order) as one softmax over every
+    position: each part rescaled by ``exp(m - max m)``, numerators and
+    denominators added in block order; [B, 1, H·hd] in ``dtype``."""
+    top = ms[0]
+    for m in ms[1:]:
+        top = torch.maximum(top, m)
+    scales = [torch.exp(m - top) for m in ms]
+    num = add_in_order([o * sc for o, sc in zip(os_, scales)])
+    den = add_in_order([l * sc for l, sc in zip(ls, scales)])
+    out = (num / den).to(dtype)  # [B, K, g, 1, hd]
+    b, kk, g, s, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, kk * g * hd)
+
+
+def attention_decode_tp(p, x, cfg, cache_k, cache_v, pos, tp, split, *, window=None,
+                        use_rope: bool = True):
+    """:func:`attention_decode` on model rank ``tp.rank`` of the model group
+    ``tp``, its KV cache stored as the serve table splits it: ``split`` is
+    the cache dimension split over ``model`` (1: positions, 2: KV heads,
+    None: whole on every rank). ``x`` [B, 1, d] is the same on every rank,
+    and so is the result.
+
+    Every rank projects the new token's q, k and v for every head (the
+    stored ``d_model`` rows of ``wq``/``wk``/``wv``: partial products added
+    in rank order). Split on positions (flash-decoding), rank ``r`` holds
+    positions ``[r·T/m, (r+1)·T/m)`` of every KV head: it writes the new
+    K/V only where it holds a slot's position, takes its block's part of
+    the softmax for every query head on global positions, and the parts are
+    combined over the group (the max, a rescale, the numerators and
+    denominators added in rank order). Split on KV heads, a rank writes and
+    attends its own KV heads with their query groups. Then ``wo`` on each
+    rank's query heads and one sum over the group (``wo`` read whole where
+    the group does not split the heads)."""
+    b = cache_k.shape[0]
+    h, hd = cfg.n_heads, cfg.hd
+    q, k_new, v_new = _decode_qkv(p, x, cfg, tp)
+    posv = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(b)
+    if use_rope:
+        q = rope(q, posv[:, None], cfg.rope_theta)
+        k_new = rope(k_new, posv[:, None], cfg.rope_theta)
+    idx = torch.arange(b, device=x.device)
+    heads = tp.part(h) if tp.splits(h) else (0, h)
+    if split == 1:
+        tl = cache_k.shape[1]
+        t0 = tp.rank * tl
+        local = posv - t0
+        mine = ((local >= 0) & (local < tl))[:, None, None]
+        at = torch.clamp(local, 0, tl - 1)
+        cache_k[idx, at] = torch.where(mine, k_new[:, 0], cache_k[idx, at])
+        cache_v[idx, at] = torch.where(mine, v_new[:, 0], cache_v[idx, at])
+        mask = _decode_mask(t0 + torch.arange(tl, device=x.device), posv, window)
+        m, l, o = softmax_part(q, cache_k, cache_v, mask)
+        ms, ls, os_ = (list(tp.gather(t).unbind(0)) for t in (m, l, o))
+        out = combine_parts(ms, ls, os_, cache_v.dtype)[..., heads[0] * hd:heads[1] * hd]
+    else:
+        kv = tp.part(cfg.n_kv_heads) if split == 2 else (0, cfg.n_kv_heads)
+        cache_k[idx, posv] = k_new[:, 0, kv[0]:kv[1]]
+        cache_v[idx, posv] = v_new[:, 0, kv[0]:kv[1]]
+        mask = _decode_mask(torch.arange(cache_k.shape[1], device=x.device), posv, window)
+        ck, cv = cache_k, cache_v
+        if split is None and heads != (0, h):  # this rank's query heads read their KV heads
+            kv_idx = torch.arange(*heads, device=x.device) // (h // cfg.n_kv_heads)
+            ck, cv = ck.index_select(2, kv_idx), cv.index_select(2, kv_idx)
+        out = mha(q[:, :, heads[0]:heads[1]], ck, cv, mask)
+    axes, shapes = _tree(p, cfg, x.shape[-1])
+    if heads == (0, h):
+        wo = tp.take(p["wo"], axes["wo"], shapes["wo"], None, partial=False)
+        return _out({"wo": wo}, out), cache_k, cache_v
+    wo = tp.take(p["wo"], axes["wo"], shapes["wo"], 0)
+    return tp.sum(_out({"wo": wo}, out)), cache_k, cache_v
 
 
 def cross_attention(p, x, kv_cache_k, kv_cache_v):

@@ -225,6 +225,10 @@ def ssd_decode(p, x_in, cfg, state):
     return res + torch.matmul(y, p["out_proj"]), {"h": hs, "conv": conv_buf[:, 1:, :]}
 
 
+#: the logical axes of :func:`init_ssm_state`'s leaves (the reference's ``ssm_state_axes``)
+SSM_STATE_AXES = {"h": ("batch", None, None, None), "conv": ("batch", None, None)}
+
+
 def init_ssm_state(cfg, batch: int, dtype=torch.bfloat16, device="cuda"):
     d, di, h, hp, n = dims(cfg)
     return {

@@ -14,15 +14,27 @@ of the whole leaves (the blocks' own maps, read by :func:`_read` as
 whole leaves'. ``chip_smoke.py`` phases 19b and 20a and the CPU tests hold
 these against the unsplit layers; the trainer runs the same per-rank code,
 one rank a process.
+
+:class:`DecodeRanks` runs a serve table's tensor-parallel decode step
+(``transformer.decode_step`` under a model group) with its ``m`` model ranks
+as threads of this process: each thread stores its rank's shards of the
+parameters and the KV cache and runs the per-rank code the server runs one
+rank a process, its group's collectives (:class:`ThreadRank`) taken over
+shared memory in rank order. ``chip_smoke.py`` phase 21 holds it against
+the unsplit step on one card.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
+import threading
 
 import torch
 
 from repro_torch.dist.data_parallel import add_in_order
+from repro_torch.dist.sharding import make_rules
+from repro_torch.dist.tensor_parallel import TensorParallel
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, whisper, xlstm
 from repro_torch.models import moe as moe_lib
@@ -212,3 +224,89 @@ def slstm_block(p, x, cfg, size: int):
                        for hh, q in zip(hs, local)], dim=-1)
     hf = apply_norm(p["ln_ffn"], x, cfg.norm, cfg.norm_eps)
     return x + mlp(xlstm.ffn_leaves(p), hf, "gelu", size)
+
+
+# ---------------------------------------------------------------------------
+# A serve table's decode step, its model ranks as threads
+# ---------------------------------------------------------------------------
+
+
+class _Shared:
+    """What the threads of one in-process group exchange through."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.slots = [None] * size
+        self.barrier = threading.Barrier(size)
+
+
+class ThreadRank(TensorParallel):
+    """Rank ``rank`` of a model group whose ranks are threads of this
+    process: :class:`~repro_torch.dist.tensor_parallel.TensorParallel`'s
+    collectives, every rank's tensor read from shared memory in rank order
+    (so every rank holds the same bits, as over a process group)."""
+
+    def __init__(self, device, shared: _Shared, rank: int, rules):
+        self.device, self.pg, self.rules = torch.device(device), None, rules
+        self.rank, self.size, self._shared = rank, shared.size, shared
+
+    def _swap(self, x, pick):
+        sh = self._shared
+        sh.slots[self.rank] = x
+        sh.barrier.wait()
+        out = torch.stack([pick(t) for t in sh.slots])
+        sh.barrier.wait()  # no rank writes its slot again before every rank has read
+        return out
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x[None] if self.size == 1 else self._swap(x, lambda t: t)
+
+    def exchange(self, chunks: torch.Tensor) -> torch.Tensor:
+        return chunks if self.size == 1 else self._swap(chunks, lambda t: t[self.rank])
+
+    def barrier(self) -> None:
+        self._shared.barrier.wait()
+
+
+class DecodeRanks:
+    """A serve table's decode step on ``(data 1, model size)``, its ranks as
+    threads of this process. Each rank stores its shards of ``params``
+    (whole, on the model's device) and of a ``slots`` × ``max_len`` cache;
+    :meth:`step` runs every rank's ``Model.serve_step`` together and
+    returns rank 0's logits (every rank's are the same)."""
+
+    def __init__(self, model, params, slots: int, max_len: int, size: int):
+        from repro_torch.models.api import shard_cache, shard_params
+        from repro_torch.runtime import plan_mesh
+
+        self.model, self.max_len, self.size = model, max_len, size
+        self.rules = make_rules(plan_mesh(size, global_batch=slots, want_model=size), "serve")
+        shared = _Shared(size)
+        self.groups = [ThreadRank(model.device, shared, r, self.rules) for r in range(size)]
+        self.params = [shard_params(model, self.rules, r, params) for r in range(size)]
+        self.caches = [shard_cache(model, self.rules, r, slots, max_len) for r in range(size)]
+        self._pool = concurrent.futures.ThreadPoolExecutor(size)
+
+    def kv_split(self) -> int | None:
+        """The cache dimension the ranks split (``transformer.kv_split``)."""
+        from repro_torch.models.transformer import kv_split
+
+        return kv_split(self.model.cfg, self.groups[0], self.max_len)
+
+    def step(self, token: torch.Tensor, pos) -> torch.Tensor:
+        def one(r):
+            try:
+                with torch.no_grad():
+                    logits, self.caches[r] = self.model.serve_step(
+                        self.params[r], {"token": token, "pos": pos, "cache": self.caches[r]},
+                        self.groups[r], self.max_len)
+                return logits
+            except BaseException:
+                self.groups[r]._shared.barrier.abort()  # the other ranks raise too
+                raise
+
+        futures = [self._pool.submit(one, r) for r in range(self.size)]
+        return [f.result() for f in futures][0]
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)

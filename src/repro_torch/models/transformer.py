@@ -55,26 +55,38 @@ def apply_block(p, x, cfg, *, window=None, dp=None, tp=None):
     return x + y, aux
 
 
-def apply_block_decode(p, x, cfg, cache, pos, *, window=None):
-    """One-token decode block. cache = {"k": [B,T,K,hd], "v": ...}, updated in place."""
+def apply_block_decode(p, x, cfg, cache, pos, *, window=None, tp=None, kv_split=None):
+    """One-token decode block. cache = {"k": [B,T,K,hd], "v": ...}, updated
+    in place. ``tp``: the model group (``p`` then this rank's stored
+    leaves, ``cache`` its shard, split on dimension ``kv_split``;
+    :func:`~repro_torch.models.attention.attention_decode_tp`)."""
     h = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
-    a, new_k, new_v = attn.attention_decode(p["attn"], h, cfg, cache["k"], cache["v"], pos,
-                                            window=window)
+    if tp is None:
+        a, new_k, new_v = attn.attention_decode(p["attn"], h, cfg, cache["k"], cache["v"], pos,
+                                                window=window)
+    else:
+        a, new_k, new_v = attn.attention_decode_tp(p["attn"], h, cfg, cache["k"], cache["v"],
+                                                   pos, tp, kv_split, window=window)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
-    x = x + _ffn(p, h, cfg)[0]
+    x = x + _ffn(p, h, cfg, tp=tp)[0]
     return x, {"k": new_k, "v": new_v}
 
 
-def init_lm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+def init_lm(gen, cfg, dtype=torch.bfloat16, device="cuda", place=None):
+    """The parameter tree, drawn in the reference's order. ``place(key,
+    subtree)``, when given, takes each top-level entry as it is drawn (a
+    rank's shard of it): a model that fits a device only sharded is never
+    whole there."""
+    place = place or (lambda key, tree: tree)
     p = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
-        "ln_f": init_norm(cfg.d_model, cfg.norm, device),
+        "embed": place("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)),
+        "ln_f": place("ln_f", init_norm(cfg.d_model, cfg.norm, device)),
     }
     for i in range(cfg.n_layers):
-        p[f"layer_{i}"] = init_block(gen, cfg, dtype, device)
+        p[f"layer_{i}"] = place(f"layer_{i}", init_block(gen, cfg, dtype, device))
     if not cfg.tie_embeddings:
-        p["lm_head"] = embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)
+        p["lm_head"] = place("lm_head", embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device))
     return p
 
 
@@ -209,16 +221,42 @@ def forward(params, tokens, cfg, *, prefix_emb=None, last_only: bool = False,
     return unembed(params, h, cfg, tp), out
 
 
-def decode_step(params, token, cache, pos, cfg):
-    """token: [B] int; cache: {"layer_i": {"k","v"}}; pos: scalar or [B]."""
-    h = embed_tokens(params, token[:, None], cfg)
+def kv_split(cfg, tp, kv_len: int):
+    """The dimension of a ``kv_len``-position KV cache leaf the serve table
+    of ``tp.rules`` splits over ``model``: 1 (positions) where the ranks
+    divide ``kv_len``, else 2 (KV heads) where they divide those, else None."""
+    return tp.rules.split_dim(KV_AXES["k"], (1, kv_len, cfg.n_kv_heads, cfg.hd), "model")
+
+
+def decode_step(params, token, cache, pos, cfg, tp=None, kv_len=None):
+    """token: [B] int; cache: {"layer_i": {"k","v"}}; pos: scalar or [B].
+    ``tp``: the model group of a serve table (``params`` this rank's stored
+    leaves, ``cache`` its shard of a ``kv_len``-position cache): the
+    vocab-parallel embedding and head, attention on the split cache
+    (:func:`kv_split`), the MLP over ``ff`` and the MoE block over its
+    experts or ``ff``; every rank returns the whole logits."""
+    h = embed_tokens(params, token[:, None], cfg, tp)
+    split = None if tp is None else kv_split(cfg, tp, kv_len)
     new_cache = {}
     for i in range(cfg.n_layers):
         h, c = apply_block_decode(params[f"layer_{i}"], h, cfg, cache[f"layer_{i}"], pos,
-                                  window=_window(cfg, i))
+                                  window=_window(cfg, i), tp=tp, kv_split=split)
         new_cache[f"layer_{i}"] = c
     h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
-    return unembed(params, h, cfg)[:, 0], new_cache
+    logits = unembed(params, h, cfg, tp)[:, 0]
+    if tp is not None and logits.shape[-1] != cfg.vocab:  # this rank's vocab part
+        logits = tp.gather_dim(logits, -1)
+    return logits, new_cache
+
+
+#: the logical axes of a layer's KV cache: its positions are the serve
+#: table's ``kvseq`` (flash-decoding), split over ``model`` before its heads
+KV_AXES = {"k": ("batch", "kvseq", "kv_heads", None), "v": ("batch", "kvseq", "kv_heads", None)}
+
+
+def cache_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_cache` makes."""
+    return {f"layer_{i}": dict(KV_AXES) for i in range(cfg.n_layers)}
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):

@@ -192,6 +192,14 @@ def decode_step(params, token, cache, pos, cfg):
     return _logits(params, h, cfg)[:, 0], new_cache
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_cache` makes: the self
+    K/V split as the dense family's, the cross K/V on their heads only."""
+    cross = ("batch", None, "kv_heads", None)
+    return {f"dec_{i}": dict(transformer.KV_AXES, xk=cross, xv=cross)
+            for i in range(cfg.n_layers)}
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
     def zeros(t):
         return torch.zeros((batch, t, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=device)

@@ -466,6 +466,14 @@ def xlstm_decode_step(params, token, cache, pos, cfg):
     return _logits(params, h, cfg)[:, 0], new_cache
 
 
+def xlstm_cache_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_xlstm_cache` makes."""
+    mlstm = {"c": ("batch", "heads", None, None), "n": ("batch", "heads", None),
+             "m": ("batch", "heads")}
+    slstm = {k: ("batch", "heads", None) for k in ("c", "n", "h", "m")}
+    return {f"layer_{i}": dict(mlstm if is_mlstm(i) else slstm) for i in range(cfg.n_layers)}
+
+
 def init_xlstm_cache(cfg, batch: int, seq_len: int, device="cuda"):
     del seq_len  # constant-size recurrent state
     return {f"layer_{i}": (init_mlstm_state if is_mlstm(i) else init_slstm_state)(

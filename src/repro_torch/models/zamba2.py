@@ -90,6 +90,13 @@ def decode_step(params, token, cache, pos, cfg):
     return _logits(params, h, cfg)[:, 0], new_cache
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of every leaf :func:`init_cache` makes."""
+    axes = {f"ssm_{i}": dict(mamba2.SSM_STATE_AXES) for i in range(cfg.n_layers)}
+    axes.update({f"attn_{i}": dict(transformer.KV_AXES) for i in attn_sites(cfg)})
+    return axes
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
     c = {f"ssm_{i}": mamba2.init_ssm_state(cfg, batch, dtype, device)
          for i in range(cfg.n_layers)}

@@ -40,6 +40,7 @@ import queue
 import shutil
 import threading
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -90,13 +91,14 @@ def _rebuild(template, leaves: dict[str, Any], prefix: tuple[str, ...] = ()):
     return dataclasses.replace(template, **new)
 
 
-def _to_host(leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory (one ``.cpu()`` copy for a tensor).
+def _to_host(leaf, copy: bool = True) -> np.ndarray:
+    """A copy of ``leaf`` in host memory (one ``.cpu()`` copy for a tensor;
+    without ``copy``, a tensor already in host memory is taken as it is).
     numpy has no bfloat16: a bfloat16 tensor becomes its 2-byte patterns as
     ``V2``, the form in which ``np.save`` writes the reference's bfloat16
     arrays."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(BF16_BYTES)
         return t.numpy()
@@ -105,6 +107,10 @@ def _to_host(leaf) -> np.ndarray:
 
 def _like(arr: np.ndarray, leaf, device) -> Any:
     """``arr`` as the kind, dtype and device of the template ``leaf``."""
+    if isinstance(leaf, torch.Tensor) and isinstance(arr, np.memmap):
+        with warnings.catch_warnings():  # read-only: the caller copies what it keeps
+            warnings.simplefilter("ignore", UserWarning)
+            return _like(np.asarray(arr), leaf, device)
     if isinstance(leaf, torch.Tensor):
         if arr.dtype == BF16_BYTES:
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
@@ -134,15 +140,18 @@ class CheckpointManager:
         self._thread.start()
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree, extra: dict | None = None) -> None:
+    def save(self, step: int, tree, extra: dict | None = None, copy: bool = True) -> None:
         """Synchronous save (snapshot, write and commit on the caller's thread)."""
-        snap = self._snapshot_timed(step, tree)
+        snap = self._snapshot_timed(step, tree, copy)
         self._write(step, snap, extra or {})
 
-    def save_async(self, step: int, tree, extra: dict | None = None) -> None:
-        """Snapshot now, serialize on the writer thread."""
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   copy: bool = True) -> None:
+        """Snapshot now, serialize on the writer thread. ``copy=False``: the
+        caller hands over host tensors it will not change, which are written
+        without a second copy."""
         self._raise_pending()
-        snap = self._snapshot_timed(step, tree)
+        snap = self._snapshot_timed(step, tree, copy)
         self._q.put((step, snap, extra or {}))
 
     def wait(self) -> None:
@@ -150,9 +159,9 @@ class CheckpointManager:
         self._q.join()
         self._raise_pending()
 
-    def _snapshot_timed(self, step: int, tree) -> dict[str, np.ndarray]:
+    def _snapshot_timed(self, step: int, tree, copy: bool = True) -> dict[str, np.ndarray]:
         t0 = time.perf_counter()
-        snap = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        snap = {k: _to_host(v, copy) for k, v in _flatten(tree).items()}
         self.save_stats[step] = {"snapshot_wall_s": time.perf_counter() - t0,
                                  "write_wall_s": None, "bytes": None}
         return snap
@@ -229,12 +238,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, step: int | None = None,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None, mmap: bool = False):
         """Restore into the structure of ``template``; returns
         ``(tree, step, extra)``.
 
         Each leaf takes the template leaf's kind and dtype; a tensor goes to
-        ``device``, or to the template leaf's device when it is None. A leaf
+        ``device``, or to the template leaf's device when it is None (a
+        template of ``meta`` tensors gives shapes and dtypes only). With
+        ``mmap`` and ``device="cpu"``, a tensor of the file's dtype is the
+        read-only mapped file, read where it is used (a caller taking a
+        shard of each leaf reads only that, leaf by leaf). A leaf
         missing from the checkpoint raises ``KeyError``, a shape that differs
         from the template's ``ValueError``, no committed step
         ``FileNotFoundError``.
@@ -250,7 +263,7 @@ class CheckpointManager:
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint {d} missing leaf {key!r}")
-            arr = np.load(os.path.join(d, meta["file"]))
+            arr = np.load(os.path.join(d, meta["file"]), mmap_mode="r" if mmap else None)
             want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else np.shape(leaf)
             if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch for {key!r}: ckpt {arr.shape} vs "

@@ -229,9 +229,9 @@ def test_trainer_on_a_data_model_mesh_tracks_the_reference(case, runs):
     if case[3] != "none":
         assert got["result"]["wire_bytes_per_step"] == got["result"][
             "wire_bytes_expected"] == want["wire"]
-    for other in ranks[1:]:  # every rank returns the same global state
+    for other in ranks[1:]:  # every rank returns the same losses; rank 0 the global state
         assert other["losses"] == got["losses"]
-        assert all(np.array_equal(a, b) for a, b in zip(other["params"], got["params"]))
+        assert other["params"] == [] and len(got["params"]) > 0
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-model{c[1]}-accum{c[2]}-{c[3]}")

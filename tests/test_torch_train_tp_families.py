@@ -185,9 +185,8 @@ def test_each_family_on_a_data_model_mesh_tracks_the_reference(case, runs):
     assert got["mesh"] == want["mesh"]
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL)
     _hold_state(got, want, case)
-    for other in ranks[1:]:  # every rank returns the same global state
+    for other in ranks[1:]:  # every rank returns the same losses; rank 0 the global state
         assert other["losses"] == got["losses"]
-        assert all(np.array_equal(a, b) for a, b in zip(other["params"], got["params"]))
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)

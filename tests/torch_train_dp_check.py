@@ -190,7 +190,7 @@ def case_preempt_resume(rank: int, world: int, weights: dict, tmp: str) -> dict:
             res = train.train(train.parse_args(argv(ckpt, *extra)), params)
         finally:
             train.PreemptionGuard = guard
-        out[name] = {"losses": res.losses, "steps": int(res.opt.step),
+        out[name] = {"losses": res.losses, "steps": res.step,
                      "params": [x.numpy().copy() for x in tree_leaves(res.params)]}
     return out
 

@@ -253,7 +253,8 @@ def case_train(rank: int, world: int, weights: dict) -> list:
         else:
             res = train.train(train.parse_args(_train_argv(arch, want_model)), params, cfg=cfg)
             got = {"losses": res.losses, "mesh": res.result["mesh"],
-                   "params": _leaves(res.params), "mu": _leaves(res.opt.mu),
+                   "params": _leaves(res.params),
+                   "mu": _leaves(res.opt.mu if res.opt is not None else None),
                    "shards": _leaves(res.shards),
                    "stored": res.result["stored_bytes_per_rank"]}
         out.append(dict(got, shapes=shapes))
