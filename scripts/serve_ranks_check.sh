@@ -8,17 +8,23 @@
 # prompt and 32 new tokens in 8 slots. Each run's log goes to
 # OUT/serve_<arch>_<ranks>_<want_model>.log (OUT: the first argument,
 # artifacts/serve_ranks by default); the JSON line of each run is printed
-# (tok_per_s, p50_decode_step_s, peak_memory_bytes_per_rank).
+# (tok_per_s, p50_decode_step_s, peak_memory_bytes_per_rank). The arguments
+# after OUT, each "ARCH RANKS WANT_MODEL", choose other runs, e.g.
+# "zamba2_7b 4 4" "zamba2_7b 1 1" (zamba2-7b at full depth at (1, 4), where
+# every rank reads and writes the whole Mamba2 state each step, and on one
+# card).
 #
-#   bash scripts/serve_ranks_check.sh [OUT]    # needs 4 cards
+#   bash scripts/serve_ranks_check.sh [OUT ["ARCH RANKS WANT_MODEL" ...]]   # needs 4 cards
 set -u
 cd "$(dirname "$0")/.."
 out=${1:-artifacts/serve_ranks}
+runs=("deepseek_coder_33b 4 4" "qwen2_5_14b 4 1" "qwen2_5_14b 1 1")
+if [ $# -gt 1 ]; then runs=("${@:2}"); fi
 export PYTHONPATH=src
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda, torch.cuda.device_count())'
 mkdir -p "$out"
-for run in "deepseek_coder_33b 4 4" "qwen2_5_14b 4 1" "qwen2_5_14b 1 1"; do
+for run in "${runs[@]}"; do
   set -- $run
   log=$out/serve_$1_$2_$3.log
   torchrun --nproc-per-node "$2" --master-port $((29400 + RANDOM % 500)) \

@@ -40,9 +40,11 @@ the same scheduler in lockstep and decodes only its slots; the greedy ids
 are all-gathered in rank order after each step, so every rank holds every
 request's tokens, which are the one-device server's. The reference plans
 ``want_model=1``, and so does the launcher by default; ``--want-model m``
-adds a model axis over which the dense, MoE and VLM families decode
-tensor-parallel (``transformer.decode_step``: the KV cache split over its
-positions, flash-decoding, or its KV heads). Rank 0 prints the reference's
+adds a model axis over which every family decodes tensor-parallel
+(``Model.serve_step(..., tp=, kv_len=)``: a KV cache split over its
+positions, flash-decoding, or its KV heads; zamba2's Mamba2 state whole on
+every rank, xLSTM's states on their heads, whisper's cross K/V on their KV
+heads; ``models/api.py::shard_cache``). Rank 0 prints the reference's
 JSON result line plus ``device``, ``decode_steps``, the median decode step,
 ``world``, ``plan``, a SHA-256 of the served token lists and each rank's
 peak device memory. It runs on the card unless ``--device cpu`` is given.

@@ -29,10 +29,16 @@ reference's rule table replicates it).
 :func:`param_shapes` gives each family's tree of leaf shapes, and
 :func:`param_axes` their logical sharding axes (the rule tables);
 ``Model.cache_axes()`` the decode cache's. Under a serve table's model
-group (``serve_step(..., tp=, kv_len=)``) the dense, MoE and VLM families
-decode tensor-parallel on a split KV cache
-(``transformer.decode_step``); the hybrid, xLSTM and encoder-decoder
-decode steps are not split yet and raise there.
+group (``serve_step(..., tp=, kv_len=)``) every family decodes
+tensor-parallel on its rank's shard of the cache (:func:`shard_cache`):
+the dense, MoE and VLM families on a KV cache split on its positions or
+KV heads (``transformer.decode_step``), the hybrid with its Mamba2 state
+whole on every rank (``mamba2.ssd_decode_tp``) and the shared block's KV
+caches split, xLSTM with its mLSTM and sLSTM states split on their heads
+(``xlstm.mlstm_decode_tp``, ``slstm_decode_tp``), and the
+encoder-decoder with its self-attention cache split and its cross K/V on
+their KV heads (``attention.cross_attention_decode_tp``); every rank
+returns the whole logits.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.dist.compress import tree_leaves, tree_unflatten
 from repro_torch.dist.fsdp import Sharded
 from repro_torch.dist.microbatch import value_and_grad
 from repro_torch.models import transformer, whisper, xlstm, zamba2
@@ -66,7 +73,7 @@ class Model:
     # (params, batch, tp=None, kv_len=None) -> (logits, cache); tp: a serve
     # table's model group, the cache then this rank's shard of kv_len positions
     decode: Callable
-    init_cache: Callable  # (batch, seq_len) -> cache
+    init_cache: Callable  # (batch, seq_len, device=the model's) -> cache
     cache_axes: Callable  # () -> the logical axes of init_cache's leaves
     # Admission seam for recurrent families: clear_slot(cache, s) zeroes slot
     # s of every leaf; restore_slots(new, old, s) keeps slot s of ``new`` and
@@ -74,11 +81,12 @@ class Model:
     clear_slot: Callable | None = None
     restore_slots: Callable | None = None
     prefix_len: int = 0  # positions before the tokens (the VLM's image)
+    # init_cache's value of every leaf of these names (the others start at 0)
+    cache_fill: dict = dataclasses.field(default_factory=dict)
 
     def init(self, seed: int = 0, place=None):
-        """The seeded parameters; ``place(key, subtree)`` (the dense, MoE
-        and VLM families) keeps each top-level entry as it is drawn
-        (``transformer.init_lm``)."""
+        """The seeded parameters; ``place(key, subtree)`` keeps each
+        top-level entry as it is drawn (``transformer.init_lm``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return self.init_fn(gen) if place is None else self.init_fn(gen, place)
@@ -136,7 +144,7 @@ def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:
         init_fn=lambda gen, place=None: transformer.init_lm(gen, cfg, dtype, dev, place),
         forward=fwd,
         decode=dec,
-        init_cache=lambda b, s: transformer.init_cache(cfg, b, s, dtype, dev),
+        init_cache=lambda b, s, device=dev: transformer.init_cache(cfg, b, s, dtype, device),
         cache_axes=lambda: transformer.cache_axes(cfg),
     )
 
@@ -180,42 +188,36 @@ def restore_slots(new, old, s: int):
     return tree_map(one, new, old)
 
 
-def _whole_decode(decode, cfg):
-    """A family's decode step that is not split over a model group yet."""
-    def dec(params, batch, tp=None, kv_len=None):
-        if tp is not None and tp.size > 1:
-            _split_decode_family(cfg)
-        return decode(params, batch["token"], batch["cache"], batch["pos"], cfg)
-
-    return dec
-
-
 def _recurrent_family(cfg: ModelConfig, dev: torch.device, init, forward, decode,
-                      init_cache, cache_axes) -> Model:
+                      init_cache, cache_axes, cache_fill=None) -> Model:
     def fwd(params, batch, last_only=False, remat=False, dp=None, tp=None):
         del dp  # no MoE block
         return forward(params, batch["tokens"], cfg, last_only=last_only, remat=remat, tp=tp)
 
-    return Model(cfg=cfg, device=dev, init_fn=init, forward=fwd,
-                 decode=_whole_decode(decode, cfg), init_cache=init_cache,
-                 cache_axes=lambda: cache_axes(cfg), clear_slot=clear_slot,
-                 restore_slots=restore_slots)
+    def dec(params, batch, tp=None, kv_len=None):
+        return decode(params, batch["token"], batch["cache"], batch["pos"], cfg, tp, kv_len)
+
+    return Model(cfg=cfg, device=dev, init_fn=init, forward=fwd, decode=dec,
+                 init_cache=init_cache, cache_axes=lambda: cache_axes(cfg),
+                 clear_slot=clear_slot, restore_slots=restore_slots,
+                 cache_fill=cache_fill or {})
 
 
 def _hybrid_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
     return _recurrent_family(
-        cfg, dev, lambda gen: zamba2.init_zamba2(gen, cfg, dtype, dev), zamba2.forward,
-        zamba2.decode_step, lambda b, s: zamba2.init_cache(cfg, b, s, dtype, dev),
-        zamba2.cache_axes)
+        cfg, dev, lambda gen, place=None: zamba2.init_zamba2(gen, cfg, dtype, dev, place),
+        zamba2.forward, zamba2.decode_step,
+        lambda b, s, device=dev: zamba2.init_cache(cfg, b, s, dtype, device), zamba2.cache_axes)
 
 
 def _xlstm_family(cfg: ModelConfig, dev: torch.device) -> Model:
     dtype = DTYPES[cfg.dtype]
     return _recurrent_family(
-        cfg, dev, lambda gen: xlstm.init_xlstm_lm(gen, cfg, dtype, dev), xlstm.xlstm_forward,
-        xlstm.xlstm_decode_step, lambda b, s: xlstm.init_xlstm_cache(cfg, b, s, dev),
-        xlstm.xlstm_cache_axes)
+        cfg, dev, lambda gen, place=None: xlstm.init_xlstm_lm(gen, cfg, dtype, dev, place),
+        xlstm.xlstm_forward, xlstm.xlstm_decode_step,
+        lambda b, s, device=dev: xlstm.init_xlstm_cache(cfg, b, s, device),
+        xlstm.xlstm_cache_axes, {"m": xlstm.M_INIT})
 
 
 def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
@@ -228,10 +230,14 @@ def _encdec_family(cfg: ModelConfig, dev: torch.device) -> Model:
         return whisper.decode_train(params, batch["tokens"], enc, cfg, last_only=last_only,
                                     tp=tp), {}
 
+    def dec(params, batch, tp=None, kv_len=None):
+        return whisper.decode_step(params, batch["token"], batch["cache"], batch["pos"], cfg,
+                                   tp, kv_len)
+
     return Model(cfg=cfg, device=dev,
-                 init_fn=lambda gen: whisper.init_whisper(gen, cfg, dtype, dev), forward=fwd,
-                 decode=_whole_decode(whisper.decode_step, cfg),
-                 init_cache=lambda b, s: whisper.init_cache(cfg, b, s, dtype, dev),
+                 init_fn=lambda gen, place=None: whisper.init_whisper(gen, cfg, dtype, dev, place),
+                 forward=fwd, decode=dec,
+                 init_cache=lambda b, s, device=dev: whisper.init_cache(cfg, b, s, dtype, device),
                  cache_axes=lambda: whisper.cache_axes(cfg))
 
 
@@ -285,13 +291,6 @@ def _shape_tree(tree) -> dict:
     return tuple(tree.shape)
 
 
-def _split_decode_family(cfg) -> None:
-    """Raise for a family whose decode step has no tensor-parallel form yet."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(f"{cfg.family}'s decode step has no tensor-parallel form "
-                                  f"yet; serve it with one model rank")
-
-
 def shard_params(model: Model, rules, rank: int, params=None, seed: int = 0):
     """Rank ``rank``'s shards of the parameters under a serve table
     ``rules`` (whole on the data axes): of ``params`` (whole) when given,
@@ -302,24 +301,33 @@ def shard_params(model: Model, rules, rank: int, params=None, seed: int = 0):
     shapes, axes = param_shapes(cfg), param_axes(cfg)
     if rules.sizes.get("model", 1) == 1:
         return model.init(seed) if params is None else params
-    _split_decode_family(cfg)
     if params is not None:
         return Sharded(rules, rank, shapes, axes, None, None).shard(params)
     return model.init(seed, lambda key, tree: Sharded(
         rules, rank, shapes[key], axes[key], None, None).shard(tree))
 
 
-def shard_cache(model: Model, rules, rank: int, slots: int, max_len: int):
+def _names(tree, name=None):
+    """A dict tree of tensors as the same tree of its leaves' keys."""
+    if isinstance(tree, dict):
+        return {k: _names(v, k) for k, v in tree.items()}
+    return name
+
+
+def shard_cache(model: Model, rules, rank: int, slots: int, max_len: int, cache=None):
     """Rank ``rank``'s shard of the decode cache of ``slots`` × ``max_len``
-    under ``rules``, made at its own shape: its block of slots (where the
-    data axes divide them), and, on a model axis, its part of every KV leaf
-    (zeros, as the dense families' ``init_cache``)."""
-    if rules.sizes.get("model", 1) == 1:
-        start, stop = rules.block(rank, "batch", slots)
-        return model.init_cache(stop - start, max_len)
-    _split_decode_family(model.cfg)
-    whole = transformer.init_cache(model.cfg, slots, max_len, DTYPES[model.cfg.dtype], "meta")
+    under ``rules``: its block of slots (where the data axes divide them)
+    and its part of every leaf the table splits over ``model``. Of
+    ``cache`` (the whole cache, e.g. whisper's cross K/V filled by
+    ``whisper.fill_cross_cache``), copied to the model's device, when
+    given; else the family's initial cache (``Model.init_cache``: zeros,
+    and xLSTM's stabilisers at ``M_INIT``) made at the rank's own shapes."""
+    whole = model.init_cache(slots, max_len, "meta") if cache is None else cache
     fs = Sharded(rules, rank, _shape_tree(whole), model.cache_axes(), None, None)
-    local = iter(fs.local_shapes())
-    return tree_map(lambda x: torch.zeros(next(local), dtype=x.dtype, device=model.device),
-                    whole)
+    if cache is not None:
+        return fs.shard(cache, model.device)
+    leaves = [torch.full(shape, model.cache_fill.get(name, 0.0), dtype=x.dtype,
+                         device=model.device)
+              for x, shape, name in zip(tree_leaves(whole), fs.local_shapes(),
+                                        tree_leaves(_names(whole)))]
+    return tree_unflatten(whole, leaves)

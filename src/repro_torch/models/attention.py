@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist.data_parallel import add_in_order
-from repro_torch.models.common import dense_init, rope
+from repro_torch.models.common import dense_init, matmul_rows, rope
 from repro_torch.models.flash import blockwise_attention
 
 NEG_INF = -1e30
@@ -193,21 +193,11 @@ def attention_decode(p, x, cfg, cache_k, cache_v, pos, *, window=None,
     return _out(p, out), cache_k, cache_v
 
 
-def _project_whole(x, w, axes, shape, tp):
-    """``_proj(x, w)`` for every head on every model rank, from ``w`` as the
-    rule table stores it: where its ``d_model`` rows are split, each rank
-    multiplies its columns of ``x`` by its rows and the partial products are
-    added in rank order; else the leaf is read whole."""
-    if tp.rules.split_dim(axes, shape, "model") == 0:
-        d0, d1 = tp.part(shape[0])
-        return tp.sum(_proj(x[..., d0:d1], w))
-    return _proj(x, tp.take(w, axes, shape, None, partial=False))
-
-
 def _decode_qkv(p, x, cfg, tp):
-    """The new token's q, k and v for every head, on every model rank."""
+    """The new token's q, k and v for every head, on every model rank,
+    from the stored ``d_model`` rows of ``wq``/``wk``/``wv``."""
     axes, shapes = _tree(p, cfg, x.shape[-1])
-    q, k, v = (_project_whole(x, p[w], axes[w], shapes[w], tp) for w in ("wq", "wk", "wv"))
+    q, k, v = (matmul_rows(x, p[w], axes[w], shapes[w], tp) for w in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = (t + tp.take(p[b], axes[b], shapes[b], None, partial=False)
                    for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
@@ -302,12 +292,22 @@ def attention_decode_tp(p, x, cfg, cache_k, cache_v, pos, tp, split, *, window=N
             kv_idx = torch.arange(*heads, device=x.device) // (h // cfg.n_kv_heads)
             ck, cv = ck.index_select(2, kv_idx), cv.index_select(2, kv_idx)
         out = mha(q[:, :, heads[0]:heads[1]], ck, cv, mask)
-    axes, shapes = _tree(p, cfg, x.shape[-1])
-    if heads == (0, h):
-        wo = tp.take(p["wo"], axes["wo"], shapes["wo"], None, partial=False)
-        return _out({"wo": wo}, out), cache_k, cache_v
-    wo = tp.take(p["wo"], axes["wo"], shapes["wo"], 0)
-    return tp.sum(_out({"wo": wo}, out)), cache_k, cache_v
+    return _decode_out(p, out, cfg, tp, heads, x.shape[-1]), cache_k, cache_v
+
+
+def _decode_out(p, out, cfg, tp, heads, d: int):
+    """``wo`` on the attention output ``out`` of query heads ``heads``
+    (every head, or this rank's part): the partial products of the rank's
+    ``wo`` rows added in rank order, or, where every rank holds every
+    head's output, ``wo`` read as the table stores it (its ``d_model``
+    columns' products gathered where they are split, else whole)."""
+    axes, shapes = _tree(p, cfg, d)
+    if heads != (0, cfg.n_heads):
+        return tp.sum(_out({"wo": tp.take(p["wo"], axes["wo"], shapes["wo"], 0)}, out))
+    if tp.rules.split_dim(axes["wo"], shapes["wo"], "model") == 2:
+        return tp.gather_dim(_out(p, out), -1)
+    wo = tp.take(p["wo"], axes["wo"], shapes["wo"], None, partial=False)
+    return _out({"wo": wo}, out)
 
 
 def cross_attention(p, x, kv_cache_k, kv_cache_v):
@@ -318,6 +318,33 @@ def cross_attention(p, x, kv_cache_k, kv_cache_v):
         q = q + p["bq"]
     mask = torch.zeros((x.shape[1], kv_cache_k.shape[1]), dtype=torch.float32, device=x.device)
     return _out(p, mha(q, kv_cache_k, kv_cache_v, mask))
+
+
+def cross_attention_decode_tp(p, x, cfg, kv_cache_k, kv_cache_v, tp):
+    """:func:`cross_attention` on rank ``tp.rank`` of a serve table's model
+    group, over a stored cross K/V cache (``xk``/``xv``, this rank's shard:
+    its KV heads where the table splits them, else every KV head). Every
+    rank projects q for every head (``wq``'s stored ``d_model`` rows:
+    partial products added in rank order) and attends with the query heads
+    of its part (:func:`head_part`'s bookkeeping, as
+    :func:`cross_attend_tp`'s): with its own KV heads, or every KV head
+    indexed by each query head. Then its rows of ``wo`` and one sum; where
+    the group does not split the heads, every rank attends with every head."""
+    axes, shapes = _tree(p, cfg, x.shape[-1])
+    q = matmul_rows(x, p["wq"], axes["wq"], shapes["wq"], tp)
+    if "bq" in p:
+        q = q + tp.take(p["bq"], axes["bq"], shapes["bq"], None, partial=False)
+    h = cfg.n_heads
+    heads, ck, cv = (0, h), kv_cache_k, kv_cache_v
+    if tp.splits(h):
+        # the table splits the cache's KV heads where the ranks divide them
+        heads, kv_idx = head_part(cfg, tp.rank, tp.size)
+        if kv_idx is not None:  # every KV head on every rank: those of its query heads
+            kv_idx = kv_idx.to(x.device)
+            ck, cv = ck.index_select(2, kv_idx), cv.index_select(2, kv_idx)
+    mask = torch.zeros((x.shape[1], ck.shape[1]), dtype=torch.float32, device=x.device)
+    out = mha(q[:, :, heads[0]:heads[1]], ck, cv, mask)
+    return _decode_out(p, out, cfg, tp, heads, x.shape[-1])
 
 
 def project_cross_kv(p, enc_out):

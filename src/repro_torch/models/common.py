@@ -216,6 +216,31 @@ def mlp_tp(p, x, tp, f: int, fn):
     return tp.reduce(fn(local, tp.copy(x)))
 
 
+def matmul_cols(x, w, axes, shape, tp):
+    """``x @ w`` whole on every rank of a serve table's model group ``tp``,
+    from ``w`` [k, n] as the table stores it: where its columns are split,
+    each rank multiplies by its columns and the parts are gathered in rank
+    order (``B·n`` elements); else ``w`` is read whole."""
+    if tp.rules.split_dim(axes, shape, "model") == 1:
+        return tp.gather_dim(torch.matmul(x, w), -1)
+    return torch.matmul(x, tp.take(w, axes, shape, None, partial=False))
+
+
+def matmul_rows(y, w, axes, shape, tp):
+    """``y @ w`` whole on every rank of a serve table's model group ``tp``
+    (``w`` [k, ...] flattened after its rows, the product unflattened),
+    ``y`` whole on every rank: where ``w``'s rows are split, each rank
+    multiplies its part of ``y`` by its rows and the partial products are
+    added in rank order; else ``w`` is read whole."""
+    if tp.rules.split_dim(axes, shape, "model") == 0:
+        d0, d1 = tp.part(shape[0])
+        out = tp.sum(torch.matmul(y[..., d0:d1], w.reshape(d1 - d0, -1)))
+    else:
+        w = tp.take(w, axes, shape, None, partial=False)
+        out = torch.matmul(y, w.reshape(shape[0], -1))
+    return out.unflatten(-1, tuple(shape[1:]))
+
+
 def apply_mlp_tp(p, x, act: str, tp, f: int):
     """:func:`apply_mlp` under a model group ``tp`` (:func:`mlp_tp`)."""
     return mlp_tp(p, x, tp, f, functools.partial(apply_mlp, act=act))

@@ -13,7 +13,9 @@ back. Decode keeps the conv state in the model type and ``h`` in float32.
 Every decay is ``exp(clip(·, -60, 0))``. One B/C group is shared by all
 heads. Under a model group the heads are split over the ranks
 (:func:`ssd_forward_tp`): :func:`ssd_heads` is the per-rank code, which
-``models/tp_ranks.py`` runs for every rank in one process.
+``models/tp_ranks.py`` runs for every rank in one process. Under a serve
+table's model group the decode step keeps the state whole on every rank
+and splits the products (:func:`ssd_decode_tp`).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (apply_norm, dense_init, init_norm, norm_axes, norm_shapes,
-                                       norm_tp, normal_init)
+from repro_torch.models.common import (apply_norm, dense_init, init_norm, matmul_cols, matmul_rows,
+                                       norm_axes, norm_shapes, norm_tp, normal_init)
 
 CONV_W = 4
 
@@ -196,19 +198,35 @@ def ssd_heads(p, u, cfg, *, chunk=None):
     return y * F.silu(z.float()).to(y.dtype)
 
 
-def ssd_decode(p, x_in, cfg, state):
+def ssd_decode(p, x_in, cfg, state, tp=None):
     """One-token decode. state = {"h": [B,H,N,P] f32, "conv": [B,W-1,C]};
-    returns (out, a new state)."""
-    d, di, h, hp, n = dims(cfg)
-    b = x_in.shape[0]
-    res = x_in
+    returns (out, a new state). ``tp``: a serve table's model group
+    (:func:`ssd_decode_tp`)."""
+    if tp is not None:
+        return ssd_decode_tp(p, x_in, cfg, state, tp)
     u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
-    u = torch.matmul(u, p["in_proj"])
-    z, xc, b_, c_, dt_raw = _split(cfg, u)
-    xbc_new = torch.cat([xc, b_, c_], -1)  # [B,1,C]
-    conv_buf = torch.cat([state["conv"], xbc_new], dim=1)  # [B,W,C]
-    out = torch.einsum("bwc,wc->bc", conv_buf, p["conv_w"]) + p["conv_b"]
-    xbc = F.silu(out.float()).to(x_in.dtype)[:, None, :]
+    y, new = _ssd_step(p, torch.matmul(u, p["in_proj"]), cfg, state,
+                       lambda buf: _conv_last(buf, p["conv_w"], p["conv_b"]))
+    y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
+    return x_in + torch.matmul(y, p["out_proj"]), new
+
+
+def _conv_last(buf, w, b):
+    """The depthwise conv's output at the last position of a window
+    ``buf`` [B, W, C] (before its ``silu``): [B, C]."""
+    return torch.einsum("bwc,wc->bc", buf, w) + b
+
+
+def _ssd_step(p, proj, cfg, state, conv):
+    """The one-token SSM update of every head from ``proj``, the new
+    token's ``in_proj`` output [B, 1, 2·di + 2·n + h] (every column);
+    ``conv(window)`` gives the conv's output of every channel. Returns the
+    ``silu(z)``-gated ``y`` [B, 1, di] before ``out_norm``, and the new state."""
+    _, di, h, hp, n = dims(cfg)
+    b = proj.shape[0]
+    z, xc, b_, c_, dt_raw = _split(cfg, proj)
+    conv_buf = torch.cat([state["conv"], torch.cat([xc, b_, c_], -1)], dim=1)  # [B,W,C]
+    xbc = F.silu(conv(conv_buf).float()).to(proj.dtype)[:, None, :]
     xc, b_, c_ = torch.split(xbc, [di, n, n], dim=-1)
 
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])  # [B,H]
@@ -219,10 +237,39 @@ def ssd_decode(p, x_in, cfg, state):
     cf = c_[:, 0].float()
     hs = state["h"] * da[..., None, None] + torch.einsum("bn,bh,bhp->bhnp", bf, dt, xh)
     y = torch.einsum("bn,bhnp->bhp", cf, hs) + xh * p["d_skip"][None, :, None]
-    y = y.reshape(b, 1, di).to(x_in.dtype)
+    y = y.reshape(b, 1, di).to(proj.dtype)
     y = y * F.silu(z.float()).to(y.dtype)
+    return y, {"h": hs, "conv": conv_buf[:, 1:, :]}
+
+
+def ssd_decode_tp(p, x_in, cfg, state, tp):
+    """:func:`ssd_decode` on rank ``tp.rank`` of a serve table's model
+    group, ``p`` its stored leaves. The table keeps the state whole on
+    every model rank (``SSM_STATE_AXES``) and splits ``in_proj``, ``conv_w``
+    and ``conv_b`` on ``ff``, a contiguous block of the ``[z | x | B | C |
+    dt]`` columns that is not a rank's heads. So each rank multiplies by
+    its columns of ``in_proj`` and the parts are gathered (``B·(2·di + 2·n
+    + h)`` elements), takes its channels of the conv and gathers them
+    (``B·(di + 2·n)``), and then runs the SSM update of every head: one
+    token's update is cheap, and the state stays the same on every rank
+    without moving. ``out_norm`` whole, a row-parallel ``out_proj`` and one
+    sum in rank order. No leaf is gathered whole where the table splits it."""
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    u = apply_norm(p["ln"], x_in, cfg.norm, cfg.norm_eps)
+    proj = matmul_cols(u, p["in_proj"], axes["in_proj"], shapes["in_proj"], tp)
+    if tp.rules.split_dim(axes["conv_w"], shapes["conv_w"], "model") == 1:
+        c0, c1 = tp.part(shapes["conv_w"][1])
+
+        def conv(buf):
+            return tp.gather_dim(_conv_last(buf[..., c0:c1], p["conv_w"], p["conv_b"]), -1)
+    else:
+        w = tp.whole({k: p[k] for k in ("conv_w", "conv_b")}, axes, shapes)
+
+        def conv(buf):
+            return _conv_last(buf, w["conv_w"], w["conv_b"])
+    y, new = _ssd_step(p, proj, cfg, state, conv)
     y = apply_norm(p["out_norm"], y, cfg.norm, cfg.norm_eps)
-    return res + torch.matmul(y, p["out_proj"]), {"h": hs, "conv": conv_buf[:, 1:, :]}
+    return x_in + matmul_rows(y, p["out_proj"], axes["out_proj"], shapes["out_proj"], tp), new
 
 
 #: the logical axes of :func:`init_ssm_state`'s leaves (the reference's ``ssm_state_axes``)

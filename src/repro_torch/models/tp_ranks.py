@@ -16,12 +16,12 @@ these against the unsplit layers; the trainer runs the same per-rank code,
 one rank a process.
 
 :class:`DecodeRanks` runs a serve table's tensor-parallel decode step
-(``transformer.decode_step`` under a model group) with its ``m`` model ranks
-as threads of this process: each thread stores its rank's shards of the
-parameters and the KV cache and runs the per-rank code the server runs one
-rank a process, its group's collectives (:class:`ThreadRank`) taken over
-shared memory in rank order. ``chip_smoke.py`` phase 21 holds it against
-the unsplit step on one card.
+(``Model.serve_step`` under a model group, every family) with its ``m``
+model ranks as threads of this process: each thread stores its rank's
+shards of the parameters and the cache and runs the per-rank code the
+server runs one rank a process, its group's collectives (:class:`ThreadRank`)
+taken over shared memory in rank order. ``chip_smoke.py`` phase 21 holds it
+against the unsplit step on one card.
 """
 
 from __future__ import annotations
@@ -270,12 +270,14 @@ class ThreadRank(TensorParallel):
 
 class DecodeRanks:
     """A serve table's decode step on ``(data 1, model size)``, its ranks as
-    threads of this process. Each rank stores its shards of ``params``
-    (whole, on the model's device) and of a ``slots`` × ``max_len`` cache;
+    threads of this process, for every family. Each rank stores its shards
+    of ``params`` (whole, on the model's device) and of a ``slots`` ×
+    ``max_len`` cache: the family's initial cache, or ``cache`` (whole;
+    whisper's cross K/V filled from an encoder output) where given;
     :meth:`step` runs every rank's ``Model.serve_step`` together and
     returns rank 0's logits (every rank's are the same)."""
 
-    def __init__(self, model, params, slots: int, max_len: int, size: int):
+    def __init__(self, model, params, slots: int, max_len: int, size: int, cache=None):
         from repro_torch.models.api import shard_cache, shard_params
         from repro_torch.runtime import plan_mesh
 
@@ -284,7 +286,8 @@ class DecodeRanks:
         shared = _Shared(size)
         self.groups = [ThreadRank(model.device, shared, r, self.rules) for r in range(size)]
         self.params = [shard_params(model, self.rules, r, params) for r in range(size)]
-        self.caches = [shard_cache(model, self.rules, r, slots, max_len) for r in range(size)]
+        self.caches = [shard_cache(model, self.rules, r, slots, max_len, cache)
+                       for r in range(size)]
         self._pool = concurrent.futures.ThreadPoolExecutor(size)
 
     def kv_split(self) -> int | None:

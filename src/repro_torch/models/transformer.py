@@ -243,10 +243,15 @@ def decode_step(params, token, cache, pos, cfg, tp=None, kv_len=None):
                                   window=_window(cfg, i), tp=tp, kv_split=split)
         new_cache[f"layer_{i}"] = c
     h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
-    logits = unembed(params, h, cfg, tp)[:, 0]
-    if tp is not None and logits.shape[-1] != cfg.vocab:  # this rank's vocab part
-        logits = tp.gather_dim(logits, -1)
-    return logits, new_cache
+    return whole_logits(unembed(params, h, cfg, tp)[:, 0], cfg, tp), new_cache
+
+
+def whole_logits(logits, cfg, tp=None):
+    """A decode step's logits over the whole vocab on every model rank: the
+    ranks' vocab parts gathered in rank order where ``tp`` split the head."""
+    if tp is not None and logits.shape[-1] != cfg.vocab:
+        return tp.gather_dim(logits, -1)
+    return logits
 
 
 #: the logical axes of a layer's KV cache: its positions are the serve

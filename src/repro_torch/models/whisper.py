@@ -14,7 +14,9 @@ Under a model group ``encode`` and ``decode_train`` split attention and
 cross attention over their heads, the MLP over ``ff`` and the tied head
 over the vocab where the group divides it (:func:`enc_block` and
 :func:`dec_block` take the layers, so ``models/tp_ranks.py`` runs the same
-blocks with every rank in one process).
+blocks with every rank in one process); ``decode_step`` under a serve
+table's model group splits the self-attention cache as the dense family's
+and the cross K/V on their KV heads.
 """
 
 from __future__ import annotations
@@ -71,16 +73,19 @@ def init_dec_block(gen, cfg, dtype=torch.bfloat16, device="cuda"):
     }
 
 
-def init_whisper(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+def init_whisper(gen, cfg, dtype=torch.bfloat16, device="cuda", place=None):
+    """The parameter tree, drawn in the reference's order; ``place(key,
+    subtree)`` as in ``transformer.init_lm``."""
+    place = place or (lambda key, tree: tree)
     p = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
-        "ln_enc": init_norm(cfg.d_model, "layernorm", device),
-        "ln_dec": init_norm(cfg.d_model, "layernorm", device),
+        "embed": place("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)),
+        "ln_enc": place("ln_enc", init_norm(cfg.d_model, "layernorm", device)),
+        "ln_dec": place("ln_dec", init_norm(cfg.d_model, "layernorm", device)),
     }
     for i in range(cfg.enc_layers):
-        p[f"enc_{i}"] = init_enc_block(gen, cfg, dtype, device)
+        p[f"enc_{i}"] = place(f"enc_{i}", init_enc_block(gen, cfg, dtype, device))
     for i in range(cfg.n_layers):
-        p[f"dec_{i}"] = init_dec_block(gen, cfg, dtype, device)
+        p[f"dec_{i}"] = place(f"dec_{i}", init_dec_block(gen, cfg, dtype, device))
     return p
 
 
@@ -170,26 +175,43 @@ def decode_train(params, tokens, enc_out, cfg, *, last_only: bool = False, tp=No
     return _logits(params, h, cfg, tp)
 
 
-def decode_step(params, token, cache, pos, cfg):
+def decode_step(params, token, cache, pos, cfg, tp=None, kv_len=None):
     """One-token decode. cache: per layer the self ``k``/``v`` (written in
-    place) and the cross ``xk``/``xv``; pos: scalar or [B]."""
+    place) and the cross ``xk``/``xv``; pos: scalar or [B]. ``tp``: a serve
+    table's model group (``params`` this rank's stored leaves, ``cache`` its
+    shard of a ``kv_len``-position cache): the embedding and the tied head
+    vocab-parallel, self attention on the split cache
+    (``attention.attention_decode_tp``, split by ``transformer.kv_split``),
+    cross attention over the rank's KV heads of the cross cache
+    (``attention.cross_attention_decode_tp``), the MLP over ``ff``; every
+    rank returns the whole logits. The positions' table is ``kv_len`` long
+    (the cache's own length without a group)."""
     b = token.shape[0]
-    h = params["embed"][token[:, None]]
-    pos_emb = sinusoidal_pos(cache["dec_0"]["k"].shape[1], cfg.d_model, h.device)
+    h = transformer.embed_tokens(params, token[:, None], cfg, tp)
+    kv_len = cache["dec_0"]["k"].shape[1] if kv_len is None else kv_len
+    pos_emb = sinusoidal_pos(kv_len, cfg.d_model, h.device)
     posv = torch.as_tensor(pos, dtype=torch.int64, device=h.device).expand(b)
     h = h + pos_emb[posv][:, None].to(h.dtype)
+    split = None if tp is None else transformer.kv_split(cfg, tp, kv_len)
     new_cache = {}
     for i in range(cfg.n_layers):
         p, c = params[f"dec_{i}"], cache[f"dec_{i}"]
         a = apply_norm(p["ln1"], h, "layernorm")
-        o, nk, nv = attn.attention_decode(p["self_attn"], a, cfg, c["k"], c["v"], pos,
-                                          use_rope=False)
+        if tp is None:
+            o, nk, nv = attn.attention_decode(p["self_attn"], a, cfg, c["k"], c["v"], pos,
+                                              use_rope=False)
+        else:
+            o, nk, nv = attn.attention_decode_tp(p["self_attn"], a, cfg, c["k"], c["v"], pos,
+                                                 tp, split, use_rope=False)
         h = h + o
         a = apply_norm(p["ln2"], h, "layernorm")
-        h = h + attn.cross_attention(p["cross_attn"], a, c["xk"], c["xv"])
-        h = h + apply_plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"))
+        if tp is None:
+            h = h + attn.cross_attention(p["cross_attn"], a, c["xk"], c["xv"])
+        else:
+            h = h + attn.cross_attention_decode_tp(p["cross_attn"], a, cfg, c["xk"], c["xv"], tp)
+        h = h + plain_mlp(p["mlp"], apply_norm(p["ln3"], h, "layernorm"), cfg, tp)
         new_cache[f"dec_{i}"] = {"k": nk, "v": nv, "xk": c["xk"], "xv": c["xv"]}
-    return _logits(params, h, cfg)[:, 0], new_cache
+    return transformer.whole_logits(_logits(params, h, cfg, tp)[:, 0], cfg, tp), new_cache
 
 
 def cache_axes(cfg) -> dict:

@@ -13,7 +13,9 @@ Under a model group both blocks split their heads over the ranks
 (:func:`mlstm_forward_tp`, :func:`slstm_forward_tp`); ``mlstm_up``,
 ``mlstm_cell``, ``mlstm_gate_down``, ``slstm_gates`` and ``slstm_scan`` are
 the per-rank code, which ``models/tp_ranks.py`` runs for every rank in one
-process.
+process. Under a serve table's model group the decode steps step a rank's
+heads of a state split on them (:func:`mlstm_decode_tp`,
+:func:`slstm_decode_tp`).
 """
 
 from __future__ import annotations
@@ -103,13 +105,17 @@ def _mlstm_qkvg(p, u, cfg):
     h = p["w_if"].shape[1] // 2
     b, s, _ = u.shape
     q = torch.matmul(u, p["wq"]).reshape(b, s, h, hp)
-    # the reference divides by sqrt(hp) rounded to float32, then to u's type
-    scale = torch.tensor(float(np.sqrt(np.float32(hp))), dtype=u.dtype, device=u.device)
-    k = torch.matmul(u, p["wk"]).reshape(b, s, h, hp) / scale
+    k = torch.matmul(u, p["wk"]).reshape(b, s, h, hp) / _key_scale(u, hp)
     v = torch.matmul(u, p["wv"]).reshape(b, s, h, hp)
     gates = torch.matmul(u.float(), p["w_if"]) + p["b_if"]
     i_raw, f_raw = gates[..., :h], gates[..., h:]
     return q.float(), k.float(), v.float(), i_raw, f_raw
+
+
+def _key_scale(u, hp: int):
+    """The keys' divisor: the reference divides by sqrt(hp) rounded to
+    float32, then to ``u``'s type."""
+    return torch.tensor(float(np.sqrt(np.float32(hp))), dtype=u.dtype, device=u.device)
 
 
 def mlstm_up(p, xin):
@@ -214,15 +220,23 @@ def mlstm_cell(p, u, cfg, *, chunk: int = 256):
     return hout.reshape(b, s, h * hp)
 
 
-def mlstm_decode(p, x, cfg, state):
-    """state = {"c": [B,H,P,P], "n": [B,H,P], "m": [B,H]} (true m-state)."""
-    d, di, h, hp = mlstm_dims(cfg)
+def mlstm_decode(p, x, cfg, state, tp=None):
+    """state = {"c": [B,H,P,P], "n": [B,H,P], "m": [B,H]} (true m-state).
+    ``tp``: a serve table's model group (:func:`mlstm_decode_tp`)."""
+    if tp is not None:
+        return mlstm_decode_tp(p, x, cfg, state, tp)
     b = x.shape[0]
     xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
     u, z = mlstm_up(p, xin)
     q, k, v, i_raw, f_raw = _mlstm_qkvg(p, u, cfg)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]  # [B,H,P]
-    i_raw, f_raw = i_raw[:, 0], f_raw[:, 0]  # [B,H]
+    hout, new = _mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0], f_raw[:, 0], state)
+    return _mlstm_out(p, hout.reshape(b, 1, -1), z, x, cfg), new
+
+
+def _mlstm_step(q, k, v, i_raw, f_raw, state):
+    """One token's mLSTM update of the heads of ``q``, ``k``, ``v``
+    [B, H, P] and the gates' pre-activations [B, H], float32: the cell
+    output [B, H, P] before the out-norm, and the new state."""
     logf = F.logsigmoid(f_raw)
     m_new = torch.maximum(logf + state["m"], i_raw)
     fw = _decay(logf + state["m"] - m_new)
@@ -233,8 +247,53 @@ def mlstm_decode(p, x, cfg, state):
     num = torch.einsum("bhp,bhpr->bhr", q, c_new)
     den = torch.einsum("bhp,bhp->bh", q, n_new)
     hout = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    out = _mlstm_out(p, hout.reshape(b, 1, di), z, x, cfg)
-    return out, {"c": c_new, "n": n_new, "m": m_new}
+    return hout, {"c": c_new, "n": n_new, "m": m_new}
+
+
+def mlstm_decode_tp(p, x, cfg, state, tp):
+    """:func:`mlstm_decode` on rank ``tp.rank`` of a serve table's model
+    group, ``p`` its stored leaves and ``state`` its shard. The table
+    stores ``up_x``/``up_z`` by their ``di`` columns and ``wq``, ``wk``,
+    ``wv`` and ``w_if`` by their ``di`` rows, the same blocks: a rank's
+    columns of ``u`` are the rows it holds. So each rank's partial products
+    of q, k, v and the gates are added over the group in rank order:
+    reduce-scattered to the rank's heads where the table splits the heads
+    (the state is then the rank's heads'), else summed on every rank (q, k
+    and v as a reduce-scatter over ``di`` and a gather), and every rank
+    steps every head. Then the out-norm over ``di`` (the sums of squares
+    added over the group where the heads are split), the ``silu(z)`` gate on
+    the rank's part of ``di``, a row-parallel ``down`` and one sum. No
+    ``di × di`` leaf is gathered; where the table keeps ``di`` whole, every
+    rank computes the whole block."""
+    _, di, h, hp = mlstm_dims(cfg)
+    shapes, axes = mlstm_shapes(cfg), mlstm_axes(cfg)
+    if tp.rules.split_dim(axes["wq"], shapes["wq"], "model") != 0:
+        return mlstm_decode(tp.whole(p, axes, shapes), x, cfg, state)
+    b = x.shape[0]
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    u, z = mlstm_up(p, xin)  # this rank's part of di
+    qkv = torch.stack([torch.matmul(u[:, 0], p[w]) for w in ("wq", "wk", "wv")], 1)  # [B,3,di]
+    gates = torch.matmul(u[:, 0].float(), p["w_if"]).unflatten(-1, (2, h))  # [B,2,H]
+    b_if = p["b_if"].unflatten(-1, (2, h))
+    heads = tp.splits(h)
+    if heads:
+        h0, h1 = tp.part(h)
+        qkv, gates, b_if = tp.reduce_scatter(qkv, -1), tp.reduce_scatter(gates, -1), b_if[:, h0:h1]
+    else:  # every head on every rank: q, k and v reduce-scattered over di, then gathered
+        qkv, gates = tp.gather_dim(tp.reduce_scatter(qkv, -1), -1), tp.sum(gates)
+    gates = gates + b_if
+    nh = gates.shape[-1]
+    q, k, v = (t.reshape(b, nh, hp) for t in qkv.unbind(1))
+    k = k / _key_scale(u, hp)
+    hout, new = _mlstm_step(q.float(), k.float(), v.float(), gates[:, 0], gates[:, 1], state)
+    hout = hout.reshape(b, 1, -1).to(x.dtype)
+    d0, d1 = tp.part(di)
+    if heads:
+        hout = norm_tp({"scale": p["out_norm"]["scale"][d0:d1]}, hout, cfg.norm, di,
+                       cfg.norm_eps, tp)
+    else:
+        hout = apply_norm(p["out_norm"], hout, cfg.norm, cfg.norm_eps)[..., d0:d1]
+    return x + tp.sum(mlstm_gate_down(p, hout, z)), new
 
 
 def init_mlstm_state(cfg, batch: int, device="cuda"):
@@ -385,12 +444,40 @@ def slstm_forward_tp(p, x, cfg, tp):
     return _slstm_ffn(p, x + tp.gather_dim(hout, -1), cfg, tp)
 
 
-def slstm_decode(p, x, cfg, state):
+def slstm_decode(p, x, cfg, state, tp=None):
+    """``tp``: a serve table's model group (:func:`slstm_decode_tp`)."""
+    if tp is not None:
+        return slstm_decode_tp(p, x, cfg, state, tp)
     d, h, dh = slstm_dims(cfg)
     b = x.shape[0]
     gin = slstm_gates(p, apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps))[:, 0]
     c, n, hh, m = _slstm_cell(p["r"], gin, (state["c"], state["n"], state["h"], state["m"]))
     return _slstm_out(p, hh.reshape(b, 1, d), x, cfg), {"c": c, "n": n, "h": hh, "m": m}
+
+
+def slstm_decode_tp(p, x, cfg, state, tp):
+    """:func:`slstm_decode` on rank ``tp.rank`` of a serve table's model
+    group, ``p`` its stored leaves and ``state`` its shard: ``w_in``, ``r``,
+    ``b`` and the state are per head, so each rank steps its heads with no
+    collective, the RMSNorm over its part of ``d`` takes the sums of squares
+    added over the group, the normed parts are gathered for the residual,
+    and the GeGLU FFN runs over ``ff``. Where the table does not split the
+    heads, every rank steps every head (the FFN splits where ``ff`` does)."""
+    d, h, _ = slstm_dims(cfg)
+    b = x.shape[0]
+    xin = apply_norm(p["ln"], x, cfg.norm, cfg.norm_eps)
+    st = (state["c"], state["n"], state["h"], state["m"])
+    if not tp.splits(h):
+        rec = tp.whole({k: p[k] for k in SLSTM_READS}, slstm_axes(cfg), slstm_shapes(cfg))
+        c, n, hh, m = _slstm_cell(rec["r"], slstm_gates(rec, xin)[:, 0], st)
+        out = _slstm_out(dict(p, **rec), hh.reshape(b, 1, d), x, cfg, tp)
+        return out, {"c": c, "n": n, "h": hh, "m": m}
+    local = tp.read(p, slstm_axes(cfg), slstm_shapes(cfg), SLSTM_READS)
+    c, n, hh, m = _slstm_cell(local["r"], slstm_gates(local, xin)[:, 0], st)
+    hout = norm_tp(local["out_norm"], hh.reshape(b, 1, -1).to(x.dtype), cfg.norm, d,
+                   cfg.norm_eps, tp)
+    out = _slstm_ffn(p, x + tp.gather_dim(hout, -1), cfg, tp)
+    return out, {"c": c, "n": n, "h": hh, "m": m}
 
 
 def init_slstm_state(cfg, batch: int, device="cuda"):
@@ -409,14 +496,17 @@ def is_mlstm(i: int) -> bool:
     return i % 2 == 0
 
 
-def init_xlstm_lm(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+def init_xlstm_lm(gen, cfg, dtype=torch.bfloat16, device="cuda", place=None):
+    """The parameter tree, drawn in the reference's order; ``place(key,
+    subtree)`` as in ``transformer.init_lm``."""
+    place = place or (lambda key, tree: tree)
     p = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
-        "ln_f": init_norm(cfg.d_model, cfg.norm, device),
+        "embed": place("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)),
+        "ln_f": place("ln_f", init_norm(cfg.d_model, cfg.norm, device)),
     }
     for i in range(cfg.n_layers):
         init = init_mlstm if is_mlstm(i) else init_slstm
-        p[f"layer_{i}"] = init(gen, cfg, dtype, device)
+        p[f"layer_{i}"] = place(f"layer_{i}", init(gen, cfg, dtype, device))
     return p
 
 
@@ -456,14 +546,20 @@ def xlstm_forward(params, tokens, cfg, *, last_only: bool = False, remat: bool =
     return _logits(params, h, cfg, tp), {}
 
 
-def xlstm_decode_step(params, token, cache, pos, cfg):
-    del pos  # O(1) state — position-free recurrence
-    h = params["embed"][token[:, None]]
+def xlstm_decode_step(params, token, cache, pos, cfg, tp=None, kv_len=None):
+    """One-token decode. ``tp``: a serve table's model group (``params``
+    this rank's stored leaves, ``cache`` its shard): the embedding and the
+    tied head vocab-parallel, the mLSTM and sLSTM steps over their heads
+    (:func:`mlstm_decode_tp`, :func:`slstm_decode_tp`); every rank returns
+    the whole logits. The state is position-free, so ``pos`` and
+    ``kv_len`` are unused."""
+    del pos, kv_len
+    h = transformer.embed_tokens(params, token[:, None], cfg, tp)
     new_cache = {}
     for i in range(cfg.n_layers):
         fn = mlstm_decode if is_mlstm(i) else slstm_decode
-        h, new_cache[f"layer_{i}"] = fn(params[f"layer_{i}"], h, cfg, cache[f"layer_{i}"])
-    return _logits(params, h, cfg)[:, 0], new_cache
+        h, new_cache[f"layer_{i}"] = fn(params[f"layer_{i}"], h, cfg, cache[f"layer_{i}"], tp)
+    return transformer.whole_logits(_logits(params, h, cfg, tp)[:, 0], cfg, tp), new_cache
 
 
 def xlstm_cache_axes(cfg) -> dict:

@@ -6,7 +6,9 @@ transformer block (attention + gated MLP, ``transformer.apply_block``) with
 the same weights at every site; when decoding, each site keeps its own KV
 cache under ``attn_{i}``. The token embedding is a plain gather (no √d
 scale) and the head is tied to it (``transformer.embed_tokens`` and
-``unembed``, which also split them over a model group).
+``unembed``, which also split them over a model group). Under a serve
+table's model group the decode step keeps each Mamba2 state whole on every
+rank (``mamba2.ssd_decode_tp``) and splits each site's KV cache.
 """
 
 from __future__ import annotations
@@ -25,14 +27,17 @@ def attn_sites(cfg) -> list[int]:
     return [i for i in range(cfg.n_layers) if (i + 1) % period == 0]
 
 
-def init_zamba2(gen, cfg, dtype=torch.bfloat16, device="cuda"):
+def init_zamba2(gen, cfg, dtype=torch.bfloat16, device="cuda", place=None):
+    """The parameter tree, drawn in the reference's order; ``place(key,
+    subtree)`` as in ``transformer.init_lm``."""
+    place = place or (lambda key, tree: tree)
     p = {
-        "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device),
-        "ln_f": init_norm(cfg.d_model, cfg.norm, device),
-        "shared": transformer.init_block(gen, cfg, dtype, device),
+        "embed": place("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dtype, device)),
+        "ln_f": place("ln_f", init_norm(cfg.d_model, cfg.norm, device)),
+        "shared": place("shared", transformer.init_block(gen, cfg, dtype, device)),
     }
     for i in range(cfg.n_layers):
-        p[f"ssm_{i}"] = mamba2.init_mamba2(gen, cfg, dtype, device)
+        p[f"ssm_{i}"] = place(f"ssm_{i}", mamba2.init_mamba2(gen, cfg, dtype, device))
     return p
 
 
@@ -77,17 +82,25 @@ def forward(params, tokens, cfg, *, last_only: bool = False, remat: bool = False
     return _logits(params, h, cfg, tp), {}
 
 
-def decode_step(params, token, cache, pos, cfg):
-    h = params["embed"][token[:, None]]
+def decode_step(params, token, cache, pos, cfg, tp=None, kv_len=None):
+    """One-token decode. ``tp``: a serve table's model group (``params``
+    this rank's stored leaves, ``cache`` its shard of a ``kv_len``-position
+    cache): the embedding and the tied head vocab-parallel, each Mamba2
+    block through ``mamba2.ssd_decode_tp`` (its state whole on every rank),
+    the shared block's sites as the dense family's decode (each site's KV
+    cache split by ``transformer.kv_split``); every rank returns the whole
+    logits."""
+    h = transformer.embed_tokens(params, token[:, None], cfg, tp)
+    split = None if tp is None else transformer.kv_split(cfg, tp, kv_len)
     sites = set(attn_sites(cfg))
     new_cache = {}
     for i in range(cfg.n_layers):
         h, new_cache[f"ssm_{i}"] = mamba2.ssd_decode(params[f"ssm_{i}"], h, cfg,
-                                                      cache[f"ssm_{i}"])
+                                                      cache[f"ssm_{i}"], tp)
         if i in sites:
             h, new_cache[f"attn_{i}"] = transformer.apply_block_decode(
-                params["shared"], h, cfg, cache[f"attn_{i}"], pos)
-    return _logits(params, h, cfg)[:, 0], new_cache
+                params["shared"], h, cfg, cache[f"attn_{i}"], pos, tp=tp, kv_split=split)
+    return transformer.whole_logits(_logits(params, h, cfg, tp)[:, 0], cfg, tp), new_cache
 
 
 def cache_axes(cfg) -> dict:

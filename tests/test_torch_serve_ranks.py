@@ -31,8 +31,9 @@ reference's weights.
   reference holds written within ``LOGIT_TOL`` of the leaf's largest).
 * The launcher at a world of one is the one-device server, bit for bit;
   the split decode's ranks as threads of one process
-  (``models/tp_ranks.py::DecodeRanks``) give the unsplit step; a family
-  whose decode step has no split form refuses a model axis.
+  (``models/tp_ranks.py::DecodeRanks``) give the unsplit step. The hybrid,
+  xLSTM and encoder-decoder families' split steps are held in
+  ``tests/test_torch_serve_ranks_families.py``.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ from repro_torch.core.convert import lm_params_from_numpy
 from repro_torch.dist.compress import tree_leaves
 from repro_torch.dist.sharding import make_rules
 from repro_torch.launch import serve
-from repro_torch.models.api import build_model, param_axes, param_shapes, shard_cache
-from repro_torch.models.tp_ranks import DecodeRanks, ThreadRank, _Shared
+from repro_torch.models.api import build_model, param_axes, param_shapes
+from repro_torch.models.tp_ranks import DecodeRanks
 from repro_torch.runtime import plan_mesh
 
 torch.set_num_threads(1)
@@ -325,17 +326,3 @@ def test_the_in_process_ranks_give_the_unsplit_decode_step(arch, size, max_len, 
                                        atol=LOGIT_TOL * float(leaf.abs().max()))
     finally:
         ranks.close()
-
-
-@pytest.mark.parametrize("arch", [chk.ZAMBA2, chk.XLSTM, chk.WHISPER])
-def test_a_family_without_a_split_decode_step_refuses_a_model_axis(arch):
-    cfg = get_smoke_config(arch)
-    model = build_model(cfg, "cpu")
-    rules = make_rules(plan_mesh(2, global_batch=2, want_model=2), "serve")
-    with pytest.raises(NotImplementedError):
-        shard_cache(model, rules, 0, 2, 32)
-    tp = ThreadRank("cpu", _Shared(2), 0, rules)
-    batch = {"token": torch.zeros(2, dtype=torch.int64), "pos": torch.zeros(2, dtype=torch.int64),
-             "cache": model.init_cache(2, 32)}
-    with pytest.raises(NotImplementedError):
-        model.serve_step(model.init(0), batch, tp, 32)
