@@ -222,15 +222,25 @@ card and CPU runs. Phases, one line each or a few:
      heads; (g) whisper-large-v3, 2 decoder layers, the cross K/V filled
      from a seeded encoder output, max_len 512 at m = 2 and 4 and 510 at
      m = 4 (its self-attention cache on its KV heads). No hand kernel is
-     launched in (b), (c) or (e)-(g).
+     launched in (b), (c) or (e)-(g);
+  22. the dry-run (``repro_torch.launch.costs``, ``lowering``) against the
+     card: (a) its analytic kernel costs give phases 2 and 3's bytes bounds
+     to the digit; (b) h2o-danube-1.8b (2 bfloat16 layers, train 8 x 128,
+     remat) and qwen2.5-14B (2 bfloat16 layers, decode 8 slots x 4096) run
+     on the card at a world of one: ``FlopCounterMode``'s count equal to the
+     cell's traced on meta, the stored argument bytes equal to the
+     predicted, the predicted peak against ``torch.cuda.max_memory_allocated``
+     within [0.5, 2]; (c) the wall of one production cell on meta
+     (qwen2.5-14B, decode_32k, the (16, 16) pod plan).
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
-10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a, 20b, 21a and 21b-g), and as the
-last line ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no
-result line, when CUDA is unavailable, when the package is missing, or when
-any phase fails. Imports nothing of the JAX package.
+10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a, 20b, 21a,
+21b-g and 22b), and as the last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, and prints no result line, when CUDA is unavailable, when
+the package is missing, or when any phase fails. Imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -248,12 +258,10 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores (data sheet)
-BF16_FLOPS = 989e12  # H100 SXM, dense bfloat16 on the tensor cores (data sheet)
-FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
-SFU_PER_SM_PER_CLK = 16
-NUM_SMS = 132
+# The card's rates (HBM bytes/s, float32/bfloat16/float64 FLOP/s, SMs and
+# special-function results an SM a clock) are the data-sheet table of
+# ``repro_torch.launch.costs.H100``, which the dry-run prices with too; run()
+# binds them once the package imports.
 
 # Per entropy term f(cnt, pi) with cnt > 0: two log2 and one division on the
 # special-function units, and about 24 other float32 operations. A term with
@@ -742,6 +750,7 @@ def run(tmp: str) -> int:
         from repro_torch.kernels import merge_gain as merge_gain_lib
         from repro_torch.kernels.merge_gain import merge_gain_cuda
         from repro_torch.utils import f32math
+        from repro_torch.launch.costs import H100
     except ImportError as exc:
         print(f"chip_smoke: cannot import repro_torch ({exc}); run it from the "
               "root of the repository", file=sys.stderr)
@@ -749,6 +758,9 @@ def run(tmp: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    HBM_BYTES_PER_S, FP32_FLOPS = H100.hbm_bytes_per_s, H100.fp32_flops
+    BF16_FLOPS, FP64_FLOPS = H100.bf16_flops, H100.fp64_flops
+    SFU_PER_SM_PER_CLK, NUM_SMS = H100.sfu_per_sm_per_clk, H100.num_sms
     dev = torch.device("cuda")
     smoke = Smoke()
     ctx: dict = {"tmp": tmp}
@@ -892,6 +904,7 @@ def run(tmp: str) -> int:
         terms, ordered_pairs = merge_gain_work(torch, gt)
         bytes_moved = g_all * (c * u + 3 * c * c + 4 * c + u) * 4
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ctx["merge_gain_bound"] = (g_all, c, u, t_bytes)
         t_sfu = (terms * SFU_PER_TERM + ordered_pairs) / (
             SFU_PER_SM_PER_CLK * NUM_SMS * ctx["sm_clock_hz"]) * 1e3
         t_flops = terms * FLOPS_PER_TERM / FP32_FLOPS * 1e3
@@ -968,6 +981,7 @@ def run(tmp: str) -> int:
                               "_pair_cost_kernel", launches=100)
         plain_ms = time_cuda(torch, lambda: ref.pair_cost_ref(cnt, pi, scal[0], scal[1]))
         t_bytes = 12 * e / HBM_BYTES_PER_S * 1e3
+        ctx["pair_cost_bound"] = (e, t_bytes)
         live = float((cnt > 0).sum())  # rows past the pair count need no term
         t_sfu = SFU_PER_TERM * live / (SFU_PER_SM_PER_CLK * NUM_SMS * ctx["sm_clock_hz"]) * 1e3
         t_flops = FLOPS_PER_TERM * live / FP32_FLOPS * 1e3
@@ -3833,6 +3847,99 @@ def run(tmp: str) -> int:
 
     smoke.phase("21 serving across ranks", phase_serve_ranks)
 
+    # ---- 22. the dry-run (launch/costs.py, lowering.py) against the card ----
+    def phase_dryrun():
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import costs as dry_costs
+        from repro_torch.launch.lowering import (build_cell, production_plan, trace_cell,
+                                                 tree_leaves_any)
+        from repro_torch.runtime import plan_mesh
+
+        errors = []
+        # (a) the analytic kernel costs give phases 2 and 3's bytes bounds
+        g, c, u, want2 = ctx["merge_gain_bound"]
+        e, want3 = ctx["pair_cost_bound"]
+        got2 = dry_costs.merge_gain_bytes(g, c, u) / H100.hbm_bytes_per_s * 1e3
+        got3 = dry_costs.pair_cost_bytes(e) / H100.hbm_bytes_per_s * 1e3
+        log(f"22a the dry-run's kernel costs: merge_gain bytes bound {got2:.4f} ms (phase 2: "
+            f"{want2:.4f}), pair_cost {got3:.4f} ms (phase 3: {want3:.4f})")
+        if got2 != want2 or got3 != want3:
+            errors.append(f"22a: {got2!r} against {want2!r}, {got3!r} against {want3!r}")
+
+        # (b) two cells run for real at a world of one, each against its
+        # trace on meta: FlopCounterMode's count, the stored and peak bytes
+        ops.reset_launch_counts()
+        cells = (("h2o-danube-1.8b, 2 bfloat16 layers, train 8 x 128, remat",
+                  dataclasses.replace(get_config("h2o_danube_1_8b"), n_layers=2),
+                  ShapeSpec("chip_train", 128, 8, "train")),
+                 ("qwen2.5-14B, 2 bfloat16 layers, decode 8 slots x 4096",
+                  dataclasses.replace(get_config("qwen2_5_14b"), n_layers=2),
+                  ShapeSpec("chip_decode", 4096, 8, "decode")))
+        for what, cfg, sp in cells:
+            plan = plan_mesh(1, global_batch=sp.global_batch, want_model=1)
+            t0 = time.perf_counter()
+            meta = trace_cell(build_cell(cfg, sp, plan))
+            meta_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            cell = build_cell(cfg, sp, plan, device="cuda")
+            leaves = tree_leaves_any(cell.args)
+            if any(x.device.type != "cuda" for x in leaves):
+                raise AssertionError(f"22b {what}: an argument is not on the card")
+            stored = dry_costs.WorkCounter("cuda").add_storages(leaves)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fc = FlopCounterMode(display=False)
+            t0 = time.perf_counter()
+            with fc:
+                out = cell.step_fn(*cell.args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            flops = fc.get_total_flops()
+            result = out[3]["loss"] if sp.kind == "train" else out[0]
+            finite = bool(torch.isfinite(result).all())
+            predicted = meta["memory"]["argument_bytes"] + meta["memory"]["temp_bytes"]
+            ratio = predicted / peak
+            log(f"22b {what}: FlopCounterMode on the card {flops} FLOPs, the trace on meta "
+                f"{meta['cost']['flops']:.0f} ({meta_s:.1f} s); arguments predicted "
+                f"{meta['memory']['argument_bytes']} bytes, stored {stored}; peak predicted "
+                f"{predicted} bytes, torch.cuda.max_memory_allocated {peak} above the "
+                f"arguments' start, ratio {ratio:.4f}; output finite {finite}, step "
+                f"{step_s * 1e3:.1f} ms (first call, counted); meta bytes_accessed "
+                f"{meta['cost']['bytes_accessed']:.0f}")
+            if flops != meta["cost"]["flops"]:
+                errors.append(f"22b {what}: {flops} FLOPs on the card, "
+                              f"{meta['cost']['flops']} on meta")
+            if stored != meta["memory"]["argument_bytes"]:
+                errors.append(f"22b {what}: stored {stored}, predicted "
+                              f"{meta['memory']['argument_bytes']}")
+            if not 0.5 <= ratio <= 2.0 or not finite:
+                errors.append(f"22b {what}: peak ratio {ratio:.4f}, finite {finite}")
+            del out, cell, leaves, result
+            torch.cuda.empty_cache()
+        ctx["dryrun_counts"] = ops.launch_counts()
+
+        # (c) one production cell on meta, on this host
+        sp = SHAPES["decode_32k"]
+        t0 = time.perf_counter()
+        rec = trace_cell(build_cell(get_config("qwen2_5_14b"), sp,
+                                    production_plan("pod", sp.global_batch)))
+        rf = rec["roofline"]
+        log(f"22c qwen2.5-14B decode_32k on the pod plan (16, 16), rank 0 on meta: "
+            f"{time.perf_counter() - t0:.1f} s (trace {rec['trace_s']:.1f} s); "
+            f"t_compute {rf['t_compute']:.3e} s, t_memory {rf['t_memory']:.3e} s, "
+            f"t_collective {rf['t_collective']:.3e} s ({rf['bottleneck']}), arguments "
+            f"{rec['memory']['argument_bytes']} bytes a rank")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("22 the dry-run against the card", phase_dryrun)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -3862,6 +3969,7 @@ def run(tmp: str) -> int:
             "serve_ranks_counts"][k]
         by_path["split decode steps, every family (phase 21b-c, e-g)"] = ctx[
             "split_decode_counts"].get(k, 0)
+        by_path["the dry-run's cells on the card (phase 22b)"] = ctx["dryrun_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

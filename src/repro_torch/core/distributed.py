@@ -291,7 +291,7 @@ class DistributedBackend:
     def __init__(self, cfg: SummaryConfig, num_nodes: int, num_edges: int, *,
                  grouping: str, capacity_factor: float, lean_sort: bool,
                  external_groups: bool, device: torch.device,
-                 perms: RoundPermutationSource):
+                 perms: RoundPermutationSource, group: RankGroup | None = None):
         if grouping not in ("hash", "compact"):
             raise ValueError(f"unknown grouping {grouping!r}; valid: ['compact', 'hash']")
         if external_groups and grouping != "compact":
@@ -305,7 +305,7 @@ class DistributedBackend:
         self.external_groups = external_groups
         self.device = device
         self.perms = perms
-        self.group = RankGroup(device)
+        self.group = RankGroup(device) if group is None else group
         p, c = self.group.size, cfg.group_size
         g_total = -(-num_nodes // c)
         self.g_pad = -(-g_total // p) * p  # groups, padded to a multiple of P
@@ -597,8 +597,8 @@ def make_distributed_backend(cfg: SummaryConfig, num_nodes: int, num_edges_globa
                              *, grouping: str = "compact", capacity_factor: float = 4.0,
                              lean_sort: bool = False, external_groups: bool = False,
                              device: str | torch.device = "cuda",
-                             perms: RoundPermutationSource | None = None
-                             ) -> DistributedBackend:
+                             perms: RoundPermutationSource | None = None,
+                             group: RankGroup | None = None) -> DistributedBackend:
     """The edge-sharded backend over ``torch.distributed``'s default group.
 
     ``grouping`` picks the candidate-set ownership (``"hash"``: [V, D]
@@ -606,14 +606,16 @@ def make_distributed_backend(cfg: SummaryConfig, num_nodes: int, num_edges_globa
     ``capacity_factor`` sizes the exchange buckets; ``lean_sort`` takes the
     2-key grouping sort; ``external_groups`` lets ``step`` take precomputed
     ``groups_all`` (from :func:`make_grouping_fn`). ``perms`` defaults to
-    :class:`~repro_torch.core.shingles.SeededPermutations` of ``cfg.seed``.
+    :class:`~repro_torch.core.shingles.SeededPermutations` of ``cfg.seed``;
+    ``group`` to the default group (``RankGroup(device)``; the dry-run passes
+    a counting one, ``launch/dry_ranks.py``).
     """
     dev = resolve_device(device)
     return DistributedBackend(
         cfg, num_nodes, num_edges_global, grouping=grouping,
         capacity_factor=capacity_factor, lean_sort=lean_sort,
         external_groups=external_groups, device=dev,
-        perms=perms if perms is not None else SeededPermutations(cfg.seed, dev))
+        perms=perms if perms is not None else SeededPermutations(cfg.seed, dev), group=group)
 
 
 def make_distributed_step(cfg: SummaryConfig, num_nodes: int, num_edges_global: int,

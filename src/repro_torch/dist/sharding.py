@@ -113,14 +113,44 @@ class Rules:
         return None
 
 
-def make_rules(plan, mode: str = "train") -> Rules:
+def _validate_override(plan, key: str, val) -> None:
+    """An override must name axes of *this* plan (or be None): the
+    reference's ``_validate_override``, with its error types. Without it a
+    mistyped axis would replicate the dimension silently (:meth:`Rules.spec`
+    drops axes it does not know)."""
+    if val is None:
+        return
+    if isinstance(val, str):
+        axes = (val,)
+    elif isinstance(val, (tuple, list)):
+        axes = tuple(val)
+    else:
+        raise ValueError(
+            f"override {key!r}={val!r}: expected a mesh axis name, a "
+            f"tuple of names, or None; got {type(val).__name__}")
+    plan_axes = tuple(plan.axes)
+    for ax in axes:
+        if not isinstance(ax, str) or ax not in plan_axes:
+            raise ValueError(
+                f"override {key!r}={val!r}: {ax!r} is not an axis of this "
+                f"mesh; mesh axes: {plan_axes}")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"override {key!r}={val!r} names a mesh axis more than once")
+
+
+def make_rules(plan, mode: str = "train", overrides=None) -> Rules:
     """The rule table of ``plan`` (a :class:`~repro_torch.runtime.MeshPlan`)
     in ``mode``. Both modes put the batch over ``(pod, data)`` and the
     tensor-parallel dimensions over ``model``. ``"train"`` adds FSDP: the
     ``embed`` parameter dimension over the data axes. ``"serve"`` keeps the
     parameters whole on the data axes and puts ``seq`` and ``kvseq`` over
     ``model`` (a KV cache split on its positions: flash-decoding). The
-    summarize and eval tables have no sharded user in the port."""
+    summarize and eval tables have no sharded user in the port.
+
+    ``overrides`` remaps single logical names (a mesh axis name, a tuple of
+    names, or None to replicate): the dry-run's ``--variant`` knobs. Unknown
+    names raise ``KeyError``, axes not of the plan ``ValueError``, as the
+    reference's ``make_rules`` does."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; the port has {MODES}")
     dp = tuple(a for a in ("pod", "data") if a in plan.axes)
@@ -133,4 +163,9 @@ def make_rules(plan, mode: str = "train") -> Rules:
     else:
         table["seq"] = tp
         table["kvseq"] = tp
+    for key, val in (overrides or {}).items():
+        if key not in table:
+            raise KeyError(f"unknown logical axis {key!r}; known: {sorted(table)}")
+        _validate_override(plan, key, val)
+        table[key] = () if val is None else (val,) if isinstance(val, str) else tuple(val)
     return Rules(shape=tuple(plan.shape), axes=tuple(plan.axes), table=table)

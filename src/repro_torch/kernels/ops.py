@@ -13,7 +13,10 @@ device and ``SummaryConfig.kernel_backend``:
   * ``"kernel"`` — the hand kernel; CPU tensors raise.
 
 For CUDA tensors the kernel launches or raises: there is no fallback to the
-plain version, and no environment switch.
+plain version, and no environment switch. While a step's work is counted
+(``launch/costs.py::WorkCounter``, installed as :data:`COUNTER`), a call
+that takes the plain version goes through the counter, which counts the
+hand kernel's own work in its place; the kernel branch is the same.
 """
 
 from __future__ import annotations
@@ -24,6 +27,28 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.entropy_bits import pair_cost_triton
 from repro_torch.kernels.merge_gain import merge_gain_cuda
 from repro_torch.kernels.segment_sum import ordered_sum_cuda, segment_sum_cuda
+
+
+#: the ``WorkCounter`` counting this process's step, if any
+COUNTER = None
+
+
+def _plain(name: str, fn, *args):
+    """The plain version ``fn(*args)`` of hand kernel ``name``; counted as
+    the kernel's own work while :data:`COUNTER` is installed."""
+    if COUNTER is None:
+        return fn(*args)
+    return COUNTER.kernel(name, fn, args)
+
+
+def trips(n: int, *tensors):
+    """``range(n)`` for a loop over ``tensors`` whose trips run the same ops
+    on the same shapes and only carry state from one to the next. While
+    :data:`COUNTER` traces ``meta`` tensors that record no gradient, trip 0
+    alone, its count taken for all ``n`` (``WorkCounter.fold``)."""
+    if COUNTER is None or not COUNTER.can_fold(tensors):
+        return range(n)
+    return COUNTER.fold(n)
 
 
 def _use_kernel(x: torch.Tensor, backend: str | None) -> bool:
@@ -47,14 +72,15 @@ def merge_gain(m, n, s, t, n_u, cidx, w, scal, *, backend: str | None = None):
     """
     if _use_kernel(m, backend):
         return merge_gain_cuda(m, n, s, t, n_u, cidx, w, scal)
-    return ref.merge_gain_ref(m, n, s, t, n_u, cidx, w, scal[0], scal[1])
+    return _plain("merge_gain", lambda *a: ref.merge_gain_ref(*a, scal[0], scal[1]),
+                  m, n, s, t, n_u, cidx, w)
 
 
 def pair_cost(cnt, pi, scal, *, backend: str | None = None):
     """Optimal per-pair description cost min(C̄+Cost₍₁₎, Cost₍₂₎), f32[E]."""
     if _use_kernel(cnt, backend):
         return pair_cost_triton(cnt, pi, scal)
-    return ref.pair_cost_ref(cnt, pi, scal[0], scal[1])
+    return _plain("pair_cost", lambda *a: ref.pair_cost_ref(*a, scal[0], scal[1]), cnt, pi)
 
 
 def segment_sum(indptr, vals, long=None, *, backend: str | None = None):
@@ -64,7 +90,7 @@ def segment_sum(indptr, vals, long=None, *, backend: str | None = None):
     the caller keeps it; the plain version does not need it."""
     if _use_kernel(vals, backend):
         return segment_sum_cuda(indptr, vals, long)
-    return ref.segment_sum_ref(indptr, vals)
+    return _plain("segment_sum", lambda i, v, _: ref.segment_sum_ref(i, v), indptr, vals, long)
 
 
 def ordered_sum(x, segment: int, *, backend: str | None = None):
@@ -73,7 +99,7 @@ def ordered_sum(x, segment: int, *, backend: str | None = None):
     right."""
     if _use_kernel(x, backend):
         return ordered_sum_cuda(x, segment)
-    return ref.ordered_sum_ref(x, segment)
+    return _plain("ordered_sum", lambda a: ref.ordered_sum_ref(a, segment), x)
 
 
 _KERNELS = {"merge_gain": merge_gain_cuda, "pair_cost": pair_cost_triton,

@@ -85,7 +85,8 @@ from repro_torch.runtime import CheckpointManager, PreemptionGuard, StragglerMon
 
 
 def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None = None,
-                     tp: TensorParallel | None = None, fs: Sharded | None = None):
+                     tp: TensorParallel | None = None, fs: Sharded | None = None,
+                     world: DataParallel | None = None):
     """``step_fn(params, opt, batch, err) -> (params, opt, err, metrics)``.
 
     ``fs``: the sharded storage across ranks (``dist/fsdp.py``; None, or a
@@ -102,7 +103,8 @@ def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None 
     one without one) on the whole mean gradient: each contributes ``grads /
     P`` of it, as the reference's ``wire_allreduce`` does (its
     ``shard_map`` takes the replicated gradients, ``in_specs=P()``); the
-    result is sharded again."""
+    result is sharded again. ``world``: every rank (default: the default
+    group), over which the sharded gradient norm is summed."""
     def loss_fn(p, b):
         return model.loss(p, b, remat=run.remat, dp=dp, tp=tp)
 
@@ -113,7 +115,8 @@ def build_train_step(model, run: RunConfig, accum: int, dp: DataParallel | None 
     # every rank computes the whole mean gradient: one model rank and a
     # batch the data ranks do not split (the single-device step)
     whole = not sharded or (dp is None and fs.model.size == 1)
-    world = DataParallel(model.device) if sharded else None
+    if sharded and world is None:
+        world = DataParallel(model.device)
 
     def step_fn(params, opt, batch, err):
         views = fs.views(params) if sharded else params

@@ -6,7 +6,7 @@ Port of ``repro/models/api.py``. :class:`Model` gives
     forward(params, batch)            → (logits, aux)           train/prefill
     loss(params, batch)               → (scalar, metrics)
     train_step(params, opt, batch, run) → (params, opt, metrics)
-    prefill_step(params, batch)       → last-position logits [B, V]
+    prefill_step(params, batch, tp)   → last-position logits [B, V]
     serve_step(params, batch, tp)     → (logits [B, V], cache)   decode
     init_cache(batch, seq_len)        → decode cache (dict tree)
     cache_axes()                      → the cache's logical axes
@@ -121,10 +121,16 @@ class Model:
     def serve_step(self, params, batch, tp=None, kv_len=None):
         return self.decode(params, batch, tp, kv_len)
 
-    def prefill_step(self, params, batch):
-        """Prefill: full-sequence forward, last-position logits only."""
-        logits, _ = self.forward(params, batch, last_only=True)
-        return logits[:, -1]
+    def prefill_step(self, params, batch, tp=None):
+        """Prefill: full-sequence forward, last-position logits only.
+        ``tp``: a model group (``params`` this rank's stored leaves); the
+        layers split over heads and ``ff``, and a vocab-split head's parts
+        are gathered, so every rank returns the whole logits."""
+        logits, _ = self.forward(params, batch, last_only=True, tp=tp)
+        logits = logits[:, -1]
+        if tp is not None and logits.shape[-1] != self.cfg.vocab:
+            logits = tp.gather_dim(logits, -1)
+        return logits
 
 
 def _dense_family(cfg: ModelConfig, dev: torch.device) -> Model:

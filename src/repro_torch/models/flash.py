@@ -7,12 +7,16 @@ accumulator), so peak live memory is one ``[B, heads, q_block, kv_block]``
 score tile. Scores and the accumulator are float32. All blocks are
 computed and masked (no causal skipping), as in the reference. This is
 plain tensor code, not a kernel: the reference has no Pallas attention.
+The KV loop's trips differ only in the positions they mask; a step's cost
+count on ``meta`` without gradients runs one (``kernels/ops.py::trips``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ops import trips
 
 NEG_INF = -1e30
 
@@ -57,7 +61,7 @@ def blockwise_attention(
         m = torch.full((b, kk, g, qb), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, kk, g, qb), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kk, g, qb, hd), dtype=torch.float32, device=dev)
-        for jk in range(nk):
+        for jk in trips(nk, q, k, v):
             k_blk, v_blk = k_r[:, jk], v_r[:, jk]
             pos_k = jk * kb + torch.arange(kb, device=dev)
             s_blk = torch.einsum("bqkgx,btkx->bkgqt", q_blk, k_blk).float() * scale

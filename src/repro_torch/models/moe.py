@@ -101,10 +101,17 @@ def route(router_w, xt, e_real: int, k: int):
     return probs, top_w, top_e
 
 
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` as one comparison on every device (ATen's
+    ``one_hot`` takes another path on ``meta`` than on a card, so a traced
+    step's count would not be the card's)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.int64)
+
+
 def _load_balance_aux(probs, e_real: int):
     """Switch-style load-balance loss from the (masked) router probs."""
     e_pad = probs.shape[-1]
-    frac_tokens = F.one_hot(torch.argmax(probs, dim=-1), e_pad).float().mean(dim=0)
+    frac_tokens = _one_hot(torch.argmax(probs, dim=-1), e_pad).float().mean(dim=0)
     frac_probs = probs.mean(dim=0)
     return e_real * torch.sum(frac_tokens * frac_probs)
 
@@ -177,7 +184,7 @@ def _experts_tp(x_e, p, cfg, tp):
 def _top1_counts(probs):
     """Tokens whose largest router probability is each expert's: [E] int64."""
     e_pad = probs.shape[-1]
-    return F.one_hot(torch.argmax(probs, dim=-1), e_pad).sum(dim=0)
+    return _one_hot(torch.argmax(probs, dim=-1), e_pad).sum(dim=0)
 
 
 def _aux_from_counts(counts, n: int, probs, e_real: int):
