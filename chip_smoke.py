@@ -50,11 +50,13 @@ card and CPU runs. Phases, one line each or a few:
   8. checkpoint and resume through the launcher (``repro_torch.launch.chaos``)
      on phase 6's file: a golden run (equal to phase 4's config run in this
      process on that file's graph), a run SIGTERM'd once step 6 is
-     committed (exit 75) and one SIGKILL'd at step 12, each resumed with
-     ``--checkpoint-every 1``, equal to the golden on every exact key and
-     digest, with each kernel launched once per resumed round; the resumed
-     runs' bytes a step, snapshot and write times (the uninterrupted
-     checkpointed run was cut for the script's time limit);
+     committed (exit 75), resumed with ``--checkpoint-every 1``, equal to
+     the golden on every exact key and digest, with each kernel launched
+     once per resumed round; the resumed run's bytes a step, snapshot and
+     write times (the uninterrupted checkpointed run and the run SIGKILL'd
+     at step 12 were cut for the script's time limit: SIGKILL and resume
+     are held on the CPU, ``tests/test_torch_preemption.py``, and a resume
+     on the card in phase 23c);
   9. edge-sharded: the launcher's ``--distributed`` on phase 6's file at a
      world of one over NCCL, twice (the same digests, exact keys and
      per-round stats), no bucket overflow, the budget met, the size
@@ -231,13 +233,27 @@ card and CPU runs. Phases, one line each or a few:
      cell's traced on meta, the stored argument bytes equal to the
      predicted, the predicted peak against ``torch.cuda.max_memory_allocated``
      within [0.5, 2]; (c) the wall of one production cell on meta
-     (qwen2.5-14B, decode_32k, the (16, 16) pod plan).
+     (qwen2.5-14B, decode_32k, the (16, 16) pod plan);
+  23. the SSumM examples and scripts: (a) ``examples/torch_quickstart.py``
+     in this process, each kernel launched once a round, the budget met;
+     (b) ``scripts/torch_make_edgelist.py`` writes an R-MAT fixture (V =
+     262,144, E = 1.2 M), and ``scripts/torch_measure_feed_rss.py`` holds
+     its 4 shards on the card: one shard of host staging, the reference's
+     layout, each child's host RSS deltas (run in a thread beside (a) and
+     (d)); (c)
+     ``scripts/torch_measure_resume.py`` on phase 6's file (T = 20, a save
+     every round): the whole-run wall with and without saves, a save's
+     snapshot and write, the restore, the resumed run equal to the full one
+     (the script's own assertion); (d)
+     ``examples/torch_distributed_summarize.py`` as a subprocess, an NCCL
+     group of one: the budget met, no bucket overflow, each kernel once a
+     round.
 
 Kernel times are device times: a batch of launches back to back between
 one pair of CUDA events, over the count. Then one JSON line of per-kernel
 numbers (``launches``: phase 4's run; ``launches_by_path``: phases 4, 7, 9,
 10, 11a, 12d, 14b, 15b, 15c, 15d, 16b, 17b, 18a, 18b, 18c, 19a, 20b, 21a,
-21b-g and 22b), and as the last line ``{"ok": true, "device": {...}}``.
+21b-g, 22b, 23a and 23d), and as the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result line, when CUDA is unavailable, when
 the package is missing, or when any phase fails. Imports nothing of the JAX
 package.
@@ -1647,31 +1663,28 @@ def run(tmp: str) -> int:
         log(f"golden (no checkpoints, driver_chunk 2): {golden['iterations']} rounds, summarize "
             f"wall {golden['wall_s']:.2f} s ({golden_s:.1f} s with start-up and load), "
             f"launches {golden['kernel_launches']}; {want[:27]}..., {vs_phase4}")
-        errors = []
-        for signame, step in (("TERM", 6), ("KILL", 12)):
-            scen = chaos.run_scenario(args, golden, signame, step, work, env)
-            resumed = scen.get("resumed", {})
-            launches = resumed.get("kernel_launches", {})
-            rounds = resumed.get("iterations", 0) - (resumed.get("resumed_from") or 0)
-            log(f"SIG{signame} once step {step} committed (step {scen['step_seen']} seen): exit "
-                f"{scen['kill_rc']}, preempted at step {scen.get('preempt_step')}; resumed "
-                f"from step {scen.get('resume_from')}: {rounds} rounds, launches {launches}, "
-                f"summarize wall {resumed.get('wall_s', float('nan')):.2f} s; exact keys "
-                f"and digests equal to the golden: {not scen['errors']}")
-            saves = resumed.get("checkpoint_saves")
-            if saves:  # --checkpoint-every 1 from the resumed step on
-                log(f"  its {saves} saves of {resumed['checkpoint_bytes']} bytes a step: snapshot "
-                    f"(the loop's stall) {resumed['checkpoint_snapshot_wall_s'] / saves * 1e3:.2f}"
-                    f" ms a save, write (writer thread) "
-                    f"{resumed['checkpoint_write_wall_s'] / saves * 1e3:.1f} ms a save")
-            errors += scen["errors"]
-            if scen.get("outcome") != "resumed":
-                errors.append(f"SIG{signame}: the run was not resumed ({scen.get('outcome')})")
-            if signame == "TERM" and scen["kill_rc"] != chaos.RESUMABLE_EXIT:
-                errors.append(f"SIGTERM exit {scen['kill_rc']}")
-            if any(launches.get(k) != rounds for k in ("merge_gain", "pair_cost")):
-                errors.append(f"SIG{signame}: launches {launches} != one per resumed round "
-                              f"({rounds})")
+        scen = chaos.run_scenario(args, golden, "TERM", 6, work, env)
+        resumed = scen.get("resumed", {})
+        launches = resumed.get("kernel_launches", {})
+        rounds = resumed.get("iterations", 0) - (resumed.get("resumed_from") or 0)
+        log(f"SIGTERM once step 6 committed (step {scen['step_seen']} seen): exit "
+            f"{scen['kill_rc']}, preempted at step {scen.get('preempt_step')}; resumed "
+            f"from step {scen.get('resume_from')}: {rounds} rounds, launches {launches}, "
+            f"summarize wall {resumed.get('wall_s', float('nan')):.2f} s; exact keys "
+            f"and digests equal to the golden: {not scen['errors']}")
+        saves = resumed.get("checkpoint_saves")
+        if saves:  # --checkpoint-every 1 from the resumed step on
+            log(f"  its {saves} saves of {resumed['checkpoint_bytes']} bytes a step: snapshot "
+                f"(the loop's stall) {resumed['checkpoint_snapshot_wall_s'] / saves * 1e3:.2f}"
+                f" ms a save, write (writer thread) "
+                f"{resumed['checkpoint_write_wall_s'] / saves * 1e3:.1f} ms a save")
+        errors = list(scen["errors"])
+        if scen.get("outcome") != "resumed":
+            errors.append(f"SIGTERM: the run was not resumed ({scen.get('outcome')})")
+        if scen["kill_rc"] != chaos.RESUMABLE_EXIT:
+            errors.append(f"SIGTERM exit {scen['kill_rc']}")
+        if any(launches.get(k) != rounds for k in ("merge_gain", "pair_cost")):
+            errors.append(f"SIGTERM: launches {launches} != one per resumed round ({rounds})")
         if errors:
             raise AssertionError("; ".join(errors))
 
@@ -3940,6 +3953,122 @@ def run(tmp: str) -> int:
 
     smoke.phase("22 the dry-run against the card", phase_dryrun)
 
+    # ---- 23. the examples and scripts on the card ----------------------------
+    def phase_examples():
+        import concurrent.futures
+        import contextlib
+        import importlib.util
+        import io
+        import subprocess
+
+        from repro_torch.graphs.feed import shard_layout
+
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        work = os.path.join(ctx["tmp"], "examples")
+        os.makedirs(work)
+
+        def script(rel, *args):
+            """``python rel args`` from the checkout: its standard output and wall."""
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.join(ROOT, rel), *args], env=env,
+                                  cwd=ROOT, capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"{rel} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                     f"\n{proc.stderr[-3000:]}")
+            return proc.stdout, time.perf_counter() - t0
+
+        def feed_rss():
+            """(b)'s two scripts, one after the other: the R-MAT fixture, then
+            the feed's host memory against densifying (their numbers are each
+            child's own RSS, whatever else runs)."""
+            path = os.path.join(work, "rmat_1m.txt")
+            _, write_s = script("scripts/torch_make_edgelist.py", "--v", "262144", "--e",
+                                "1200000", "--shuffle", "--out", path)
+            rss = os.path.join(work, "feed_rss_torch.json")
+            text, rss_s = script("scripts/torch_measure_feed_rss.py", path, "--ranks", "4",
+                                 "--device", "cuda", "--out", rss)
+            with open(rss) as f:
+                return text, json.load(f), write_s, rss_s
+
+        errors = []
+        t_phase = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            pending_rss = pool.submit(feed_rss)  # host work, beside (a) and (d)
+
+            # (a) the quickstart in this process
+            spec = importlib.util.spec_from_file_location(
+                "torch_quickstart", os.path.join(ROOT, "examples", "torch_quickstart.py"))
+            quickstart = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(quickstart)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = quickstart.main(["--device", "cuda"])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            ctx["quickstart_counts"] = counts
+            log(f"23a examples/torch_quickstart.py: {time.perf_counter() - t0:.1f} s, launches "
+                f"{counts}: {json.dumps(out)}")
+            rounds = out["iterations"]
+            if counts["merge_gain"] != rounds or counts["pair_cost"] != rounds:
+                errors.append(f"23a: launches {counts}, not one a round of {rounds}")
+            if not out["relative_size"] <= 0.3 or out["device"] != "cuda":
+                errors.append(f"23a: relative size {out['relative_size']} on {out['device']}")
+
+            # (d) the distributed example: a world of one over NCCL
+            text, wall = script("examples/torch_distributed_summarize.py", "--device", "cuda")
+            for line in text.splitlines()[:-1]:
+                log(f"23d {line}")
+            res = json.loads(text.splitlines()[-1])
+            ctx["dist_example_counts"] = res["kernel_launches"]
+            n = res["iterations"]
+            log(f"23d examples/torch_distributed_summarize.py: {wall:.1f} s, world "
+                f"{res['world']} over {res['backend']}, launches {res['kernel_launches']}, "
+                f"bucket capacity {res['bucket_cap']}")
+            if (res["world"], res["backend"]) != (1, "nccl") or not res["budget_reached"]:
+                errors.append(f"23d: world {res['world']} over {res['backend']}, budget "
+                              f"reached {res['budget_reached']}")
+            if any(r["overflow"] for r in res["rounds"]):
+                errors.append(f"23d: a bucket overflowed: {res['rounds']}")
+            if (res["kernel_launches"]["merge_gain"],
+                    res["kernel_launches"]["pair_cost"]) != (n, n):
+                errors.append(f"23d: launches {res['kernel_launches']}, not one a round of {n}")
+
+            # (b) the fixture and the feed's host memory, from the thread
+            text, (dens, feed), write_s, rss_s = pending_rss.result()
+        log(f"23b scripts/torch_make_edgelist.py {write_s:.1f} s, "
+            f"scripts/torch_measure_feed_rss.py {rss_s:.1f} s:")
+        for line in text.splitlines():
+            log(f"23b {line}")
+        log(f"23b rows: {json.dumps(dens)}; {json.dumps(feed)}")
+        f = feed["feed"]
+        rows = shard_layout(feed["E"], 4)[0]
+        if f["shard_rows"] != rows or f["peak_staging_bytes"] != f["shard_bytes"] != 4 * rows:
+            errors.append(f"23b: shard rows {f['shard_rows']} (layout {rows}), staging "
+                          f"{f['peak_staging_bytes']} bytes, one shard {f['shard_bytes']}")
+
+        # (c) checkpoint and resume on phase 6's file, a save every round;
+        # alone, as its walls are the measurement
+        text, wall = script("scripts/torch_measure_resume.py", "--edge-list", ctx["edge_list"],
+                            "--T", "20", "--driver-chunk", "1", "--device", "cuda")
+        rec = json.loads(text[text.index("{"):])
+        log(f"23c scripts/torch_measure_resume.py: {wall:.1f} s: {json.dumps(rec)}")
+        saves = rec["saves"]
+        log(f"23c {rec['rounds']} rounds, {saves} saves of {rec['checkpoint_bytes']} bytes: wall "
+            f"{rec['wall_plain_s']:.4f} s plain, {rec['wall_checkpointed_s']:.4f} s "
+            f"checkpointed (overhead {100 * rec['overhead_frac']:+.2f}%), snapshot "
+            f"{rec['snapshot_mean_ms']:.3f} ms a save, write {rec['write_mean_ms']:.3f} ms a "
+            f"save (writer thread), restore {rec['restore_wall_ms']:.3f} ms, resumed from "
+            f"step {rec['resumed_from_step']} in {rec['wall_resumed_s']:.4f} s")
+        if rec["device"] != "cuda" or saves < rec["rounds"] or rec["checkpoint_bytes"] <= 0:
+            errors.append(f"23c: {rec}")
+        log(f"23 phase wall {time.perf_counter() - t_phase:.1f} s")
+        if errors:
+            raise AssertionError("; ".join(errors))
+
+    smoke.phase("23 examples and scripts on the card", phase_examples)
+
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
@@ -3970,6 +4099,9 @@ def run(tmp: str) -> int:
         by_path["split decode steps, every family (phase 21b-c, e-g)"] = ctx[
             "split_decode_counts"].get(k, 0)
         by_path["the dry-run's cells on the card (phase 22b)"] = ctx["dryrun_counts"][k]
+        by_path["the quickstart (phase 23a)"] = ctx["quickstart_counts"][k]
+        by_path["the distributed example, an NCCL group of one (phase 23d)"] = ctx[
+            "dist_example_counts"][k]
     log(json.dumps({"kernels": [smoke.kernels[k] for k in names]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

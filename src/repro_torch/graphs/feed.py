@@ -99,7 +99,10 @@ def _feed(src, dst, num_edges: int, rank: int, n_ranks: int, device,
         if n_valid:
             np.copyto(buf[:n_valid], column[a:a + n_valid], casting="same_kind")
         buf[n_valid:] = -1
-        cols.append(torch.from_numpy(buf).to(device=device, dtype=torch.int64))
+        # int32 across, int64 on the device: a blocking copy that also
+        # changes the dtype converts on the host, in a temporary twice the
+        # staging buffer's size
+        cols.append(torch.from_numpy(buf).to(device=device).to(torch.int64))
         stats.bytes_copied += buf.nbytes
         del buf
     return EdgeShards(src=cols[0], dst=cols[1], num_edges=num_edges,
