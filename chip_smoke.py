@@ -50,13 +50,11 @@ card and CPU runs. Phases, one line each or a few:
   8. checkpoint and resume through the launcher (``repro_torch.launch.chaos``)
      on phase 6's file: a golden run (equal to phase 4's config run in this
      process on that file's graph), a run SIGTERM'd once step 6 is
-     committed (exit 75), resumed with ``--checkpoint-every 1``, equal to
-     the golden on every exact key and digest, with each kernel launched
-     once per resumed round; the resumed run's bytes a step, snapshot and
-     write times (the uninterrupted checkpointed run and the run SIGKILL'd
-     at step 12 were cut for the script's time limit: SIGKILL and resume
-     are held on the CPU, ``tests/test_torch_preemption.py``, and a resume
-     on the card in phase 23c);
+     committed (exit 75) and one SIGKILL'd at step 12, each resumed with
+     ``--checkpoint-every 1``, equal to the golden on every exact key and
+     digest, with each kernel launched once per resumed round; the resumed
+     runs' bytes a step, snapshot and write times (the uninterrupted
+     checkpointed run was cut for the script's time limit);
   9. edge-sharded: the launcher's ``--distributed`` on phase 6's file at a
      world of one over NCCL, twice (the same digests, exact keys and
      per-round stats), no bucket overflow, the budget met, the size
@@ -1663,28 +1661,31 @@ def run(tmp: str) -> int:
         log(f"golden (no checkpoints, driver_chunk 2): {golden['iterations']} rounds, summarize "
             f"wall {golden['wall_s']:.2f} s ({golden_s:.1f} s with start-up and load), "
             f"launches {golden['kernel_launches']}; {want[:27]}..., {vs_phase4}")
-        scen = chaos.run_scenario(args, golden, "TERM", 6, work, env)
-        resumed = scen.get("resumed", {})
-        launches = resumed.get("kernel_launches", {})
-        rounds = resumed.get("iterations", 0) - (resumed.get("resumed_from") or 0)
-        log(f"SIGTERM once step 6 committed (step {scen['step_seen']} seen): exit "
-            f"{scen['kill_rc']}, preempted at step {scen.get('preempt_step')}; resumed "
-            f"from step {scen.get('resume_from')}: {rounds} rounds, launches {launches}, "
-            f"summarize wall {resumed.get('wall_s', float('nan')):.2f} s; exact keys "
-            f"and digests equal to the golden: {not scen['errors']}")
-        saves = resumed.get("checkpoint_saves")
-        if saves:  # --checkpoint-every 1 from the resumed step on
-            log(f"  its {saves} saves of {resumed['checkpoint_bytes']} bytes a step: snapshot "
-                f"(the loop's stall) {resumed['checkpoint_snapshot_wall_s'] / saves * 1e3:.2f}"
-                f" ms a save, write (writer thread) "
-                f"{resumed['checkpoint_write_wall_s'] / saves * 1e3:.1f} ms a save")
-        errors = list(scen["errors"])
-        if scen.get("outcome") != "resumed":
-            errors.append(f"SIGTERM: the run was not resumed ({scen.get('outcome')})")
-        if scen["kill_rc"] != chaos.RESUMABLE_EXIT:
-            errors.append(f"SIGTERM exit {scen['kill_rc']}")
-        if any(launches.get(k) != rounds for k in ("merge_gain", "pair_cost")):
-            errors.append(f"SIGTERM: launches {launches} != one per resumed round ({rounds})")
+        errors = []
+        for signame, step in (("TERM", 6), ("KILL", 12)):
+            scen = chaos.run_scenario(args, golden, signame, step, work, env)
+            resumed = scen.get("resumed", {})
+            launches = resumed.get("kernel_launches", {})
+            rounds = resumed.get("iterations", 0) - (resumed.get("resumed_from") or 0)
+            log(f"SIG{signame} once step {step} committed (step {scen['step_seen']} seen): exit "
+                f"{scen['kill_rc']}, preempted at step {scen.get('preempt_step')}; resumed "
+                f"from step {scen.get('resume_from')}: {rounds} rounds, launches {launches}, "
+                f"summarize wall {resumed.get('wall_s', float('nan')):.2f} s; exact keys "
+                f"and digests equal to the golden: {not scen['errors']}")
+            saves = resumed.get("checkpoint_saves")
+            if saves:  # --checkpoint-every 1 from the resumed step on
+                log(f"  its {saves} saves of {resumed['checkpoint_bytes']} bytes a step: snapshot "
+                    f"(the loop's stall) {resumed['checkpoint_snapshot_wall_s'] / saves * 1e3:.2f}"
+                    f" ms a save, write (writer thread) "
+                    f"{resumed['checkpoint_write_wall_s'] / saves * 1e3:.1f} ms a save")
+            errors += scen["errors"]
+            if scen.get("outcome") != "resumed":
+                errors.append(f"SIG{signame}: the run was not resumed ({scen.get('outcome')})")
+            if signame == "TERM" and scen["kill_rc"] != chaos.RESUMABLE_EXIT:
+                errors.append(f"SIGTERM exit {scen['kill_rc']}")
+            if any(launches.get(k) != rounds for k in ("merge_gain", "pair_cost")):
+                errors.append(f"SIG{signame}: launches {launches} != one per resumed round "
+                              f"({rounds})")
         if errors:
             raise AssertionError("; ".join(errors))
 
@@ -4044,7 +4045,7 @@ def run(tmp: str) -> int:
         log(f"23b rows: {json.dumps(dens)}; {json.dumps(feed)}")
         f = feed["feed"]
         rows = shard_layout(feed["E"], 4)[0]
-        if f["shard_rows"] != rows or f["peak_staging_bytes"] != f["shard_bytes"] != 4 * rows:
+        if f["shard_rows"] != rows or not f["peak_staging_bytes"] == f["shard_bytes"] == 4 * rows:
             errors.append(f"23b: shard rows {f['shard_rows']} (layout {rows}), staging "
                           f"{f['peak_staging_bytes']} bytes, one shard {f['shard_bytes']}")
 

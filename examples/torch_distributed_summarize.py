@@ -140,21 +140,22 @@ def main(argv=None, perms=None) -> dict:
     record."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if under_torchrun() or dist.is_initialized():
-        if args.ranks is not None:
-            raise SystemExit("--ranks is for runs outside torchrun")
-        _, _, device = init_distributed(device)
-        return summarize_rank(device, perms)
-    ranks = args.ranks or (torch.cuda.device_count() if device.type == "cuda" else 8)
+    joined = under_torchrun() or dist.is_initialized()
+    if joined and args.ranks is not None:
+        raise SystemExit("--ranks is for runs outside torchrun")
+    ranks = 1 if joined else args.ranks or (
+        torch.cuda.device_count() if device.type == "cuda" else 8)
     if device.type == "cuda" and ranks > torch.cuda.device_count():
         raise SystemExit(f"--ranks {ranks}: one NCCL rank a card, and "
                          f"{torch.cuda.device_count()} card(s) are visible")
-    if ranks == 1:  # a group of one in this process
+    if ranks == 1:  # in this process: torchrun's or the caller's group, or a world of one
+        made = not dist.is_initialized()
         _, _, device = init_distributed(device)
         try:
             return summarize_rank(device, perms)
         finally:
-            dist.destroy_process_group()
+            if made:
+                dist.destroy_process_group()
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="torch-dist-example-") as tmp:

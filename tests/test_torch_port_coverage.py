@@ -4,8 +4,9 @@
   ``src/repro_torch/``, or is in :data:`LEFT_OUT` with its reason.
 * Every file of ``examples/`` and ``scripts/`` that imports ``repro`` has a
   ``torch_`` copy beside it.
-* Every ``benchmarks/*.py`` is in :data:`BENCHMARK_PR`: the port's
-  benchmark copies are a benchmark change's work, not a bring-up slice's.
+* Every reference ``benchmarks/*.py`` is in :data:`BENCHMARK_PR`: the
+  port's benchmark copies are a benchmark change's work, not a bring-up
+  slice's, and may be added beside them.
 * Every ``examples/torch_*.py`` and ``scripts/torch_*.py`` imports neither
   ``jax`` nor ``repro`` (every import statement, at any depth).
 """
@@ -74,8 +75,20 @@ def test_every_example_and_script_that_imports_repro_has_a_torch_copy(path):
         assert (path.parent / f"torch_{path.name}").is_file(), path
 
 
-def test_every_benchmark_is_the_benchmark_prs():
-    assert {p.name for p in (ROOT / "benchmarks").glob("*.py")} == BENCHMARK_PR
+def reference_benchmarks() -> list[pathlib.Path]:
+    """The reference's benchmark files: those that are not a port's copy
+    (named ``torch_*`` or importing ``repro_torch``)."""
+    return sorted(p for p in (ROOT / "benchmarks").glob("*.py")
+                  if not p.name.startswith("torch_") and "repro_torch" not in imports(p))
+
+
+@pytest.mark.parametrize("path", reference_benchmarks(), ids=lambda p: p.name)
+def test_every_reference_benchmark_is_the_benchmark_prs(path):
+    assert path.name in BENCHMARK_PR, path
+
+
+def test_every_benchmark_named_for_the_benchmark_pr_exists():
+    assert all((ROOT / "benchmarks" / name).is_file() for name in BENCHMARK_PR)
 
 
 @pytest.mark.parametrize("path", port_copies(), ids=lambda p: f"{p.parent.name}/{p.name}")
