@@ -11,7 +11,7 @@ by every rank, and the preemption flag is agreed at every sync point.
 
 The engine walks the rounds in chunks of ``cfg.driver_chunk`` as the
 reference's does. Inside a chunk the backend reads each round's scalars to
-the host once (one sync a round) and ends the chunk early on the stopping
+the host once (one read-back a round) and ends the chunk early on the stopping
 test the reference evaluates on the device: ``size_bits ≤ k`` in float32,
 or no merge at θ = 0. At a chunk boundary the engine's own test compares in
 float64, as the reference's host does, so both runs take the same rounds.
@@ -55,6 +55,7 @@ from repro_torch.core.types import (
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.elastic import Preempted, PreemptionGuard
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.utils.spans import span
 
 # Per-round scalar stats of the local backend, in the reference's order.
 LOCAL_STAT_KEYS = (
@@ -185,14 +186,15 @@ class EngineCheckpointer:
         checkpoint it would resume from."""
         step = int(payload["t_next"]) - 1  # completed rounds
         rank, world = _world()
-        if rank == 0:
-            extra = dict(payload, fingerprints=self.fingerprints(backend),
-                         perms=backend.perms.state_dict())
-            self.manager.save_async(step, _state_on_disk(state), extra)
-            if sync or world > 1:
-                self.manager.wait()
-        if world > 1:
-            torch.distributed.barrier()
+        with span("ssumm.checkpoint"):
+            if rank == 0:
+                extra = dict(payload, fingerprints=self.fingerprints(backend),
+                             perms=backend.perms.state_dict())
+                self.manager.save_async(step, _state_on_disk(state), extra)
+                if sync or world > 1:
+                    self.manager.wait()
+            if world > 1:
+                torch.distributed.barrier()
         return step
 
     def restore(self, backend: "LocalBackend"):
@@ -232,6 +234,9 @@ class EngineRun:
     input_size_bits: float
     k_bits: float
     finalize: dict[str, Any]  # backend payload from sparsify_finalize
+    # host wall of sparsify_finalize, ended with no device sync of its own: on
+    # the local backend on the card it times the enqueue of the finalize
+    # path, not its device work (a profiler's ``ssumm.finalize`` span has that)
     sparsify_wall_s: float
     # fault tolerance and observability
     chunk_wall_s: list = dataclasses.field(default_factory=list)
@@ -384,7 +389,8 @@ class SummaryEngine:
             sync_point(state, force=True)
 
         t_sp = time.perf_counter()
-        finalize = backend.sparsify_finalize(state, k_bits, iterations_run + 1)
+        with span("ssumm.finalize"):
+            finalize = backend.sparsify_finalize(state, k_bits, iterations_run + 1)
         sparsify_wall_s = time.perf_counter() - t_sp
         snapshot_wall = 0.0
         if ck is not None:
@@ -437,11 +443,13 @@ class LocalBackend:
         rows = []
         for i in range(limit):
             t_round = time.perf_counter()
-            theta = costs.f32_scalar(thetas[i], self.device)
-            state, stats = merge.merge_iteration(self.graph.src, self.graph.dst,
-                                                 state, self.cfg, theta, self.perms)
-            vals = torch.stack([stats[k].to(torch.float32)
-                                for k in LOCAL_STAT_KEYS]).cpu().numpy()
+            with span("ssumm.round"):
+                theta = costs.f32_scalar(thetas[i], self.device)
+                state, stats = merge.merge_iteration(self.graph.src, self.graph.dst,
+                                                     state, self.cfg, theta, self.perms)
+                with span("ssumm.readback"):
+                    vals = torch.stack([stats[k].to(torch.float32)
+                                        for k in LOCAL_STAT_KEYS]).cpu().numpy()
             row = {k: float(x) for k, x in zip(LOCAL_STAT_KEYS, vals)}
             # host wall time of the round, ended by the read-back above
             row["round_s"] = time.perf_counter() - t_round

@@ -8,7 +8,10 @@ the mutually-best pairs whose Relative_Reduction (Eq. 20) exceeds θ(t)
 gather.
 
 Nothing in a round reads a value back to the host: every table keeps its
-capacity and the round's scalars stay 0-d tensors on the device.
+capacity and the round's scalars stay 0-d tensors on the device. The host
+still waits for the card twice a round: ``utils.segments.boundaries_from_keys``
+writes its first flag from a host value, a blocking copy on the card, once
+in the pair table and once in the neighbor tables.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from repro_torch.core import costs, shingles, tables
 from repro_torch.core.shingles import PermutationSource
 from repro_torch.core.types import SummaryConfig, SummaryState
 from repro_torch.kernels import ops
+from repro_torch.utils.spans import span
 
 F32 = torch.float32
 
@@ -82,27 +86,31 @@ def merge_iteration(src: torch.Tensor, dst: torch.Tensor, state: SummaryState,
     v = state.node2super.shape[0]
     e = src.shape[0]
 
-    pt = costs.build_pair_table(src, dst, state)
-    metrics = costs.summary_metrics(pt, state, v, e, cbar_mode=cfg.cbar_mode,
-                                    re_guard=cfg.re_guard)
-    cbar = metrics["cbar"]
-    log2v = costs.log2_f32(v, src.device)
-    scal = torch.stack([cbar, log2v])  # (cbar, log2v) stay on the device
+    with span("ssumm.pair_table"):
+        pt = costs.build_pair_table(src, dst, state)
+    with span("ssumm.metrics"):
+        metrics = costs.summary_metrics(pt, state, v, e, cbar_mode=cfg.cbar_mode,
+                                        re_guard=cfg.re_guard)
+        cbar = metrics["cbar"]
+        log2v = costs.log2_f32(v, src.device)
+        scal = torch.stack([cbar, log2v])  # (cbar, log2v) stay on the device
 
-    groups = shingles.build_groups(src, dst, state, perms, cfg.group_size)
+    with span("ssumm.groups"):
+        groups = shingles.build_groups(src, dst, state, perms, cfg.group_size)
     gt = tables.build_group_tables(pt, state, groups, cfg.max_neighbors,
                                    cfg.union_size, scal, v,
                                    backend=cfg.kernel_backend)
-    rel, red = ops.merge_gain(gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w, scal,
-                              backend=cfg.kernel_backend)
-    a, b, sel = select_matching(rel, gt.members, theta)
-    new_state, nmerges = apply_merges(state, a, b, sel)
-    # summed Eq. 17 reduction (bits) of the accepted pairs: each row's
-    # best-partner red, by the same argmax select_matching used
-    best_j = torch.argmax(rel, dim=-1)
-    red_best = torch.gather(red, 2, best_j[..., None])[..., 0]
-    total_reduction = torch.sum(torch.where(sel, red_best.reshape(-1),
-                                            torch.zeros((), dtype=F32, device=rel.device)))
+    with span("ssumm.gain_and_merge"):
+        rel, red = ops.merge_gain(gt.m, gt.n, gt.s, gt.t, gt.n_u, gt.cidx, gt.w, scal,
+                                  backend=cfg.kernel_backend)
+        a, b, sel = select_matching(rel, gt.members, theta)
+        new_state, nmerges = apply_merges(state, a, b, sel)
+        # summed Eq. 17 reduction (bits) of the accepted pairs: each row's
+        # best-partner red, by the same argmax select_matching used
+        best_j = torch.argmax(rel, dim=-1)
+        red_best = torch.gather(red, 2, best_j[..., None])[..., 0]
+        total_reduction = torch.sum(torch.where(
+            sel, red_best.reshape(-1), torch.zeros((), dtype=F32, device=rel.device)))
     new_state = SummaryState(node2super=new_state.node2super, size=new_state.size,
                              t=state.t + 1)
     stats = {

@@ -19,10 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.engine import EngineCheckpointer, LocalBackend, SummaryEngine
+from repro_torch.core.engine import (
+    EngineCheckpointer,
+    EngineRun,
+    LocalBackend,
+    SummaryEngine,
+)
 from repro_torch.core.shingles import PermutationSource
 from repro_torch.core.types import SummaryConfig, SummaryResult
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.utils.spans import span
 
 
 def summarize(src, dst, num_nodes: int, cfg: SummaryConfig = SummaryConfig(),
@@ -38,11 +44,17 @@ def summarize(src, dst, num_nodes: int, cfg: SummaryConfig = SummaryConfig(),
     ``monitor`` and ``resume`` pass through to
     :meth:`~repro_torch.core.engine.SummaryEngine.run`.
     """
-    backend = LocalBackend(src, dst, num_nodes, cfg, device=device, perms=perms)
-    run = SummaryEngine(backend).run(collect_history=collect_history,
-                                     checkpointer=checkpointer, monitor=monitor,
-                                     resume=resume)
+    with span("ssumm.run"):
+        backend = LocalBackend(src, dst, num_nodes, cfg, device=device, perms=perms)
+        run = SummaryEngine(backend).run(collect_history=collect_history,
+                                         checkpointer=checkpointer, monitor=monitor,
+                                         resume=resume)
+        with span("ssumm.to_host"):
+            return _result(run)
 
+
+def _result(run: EngineRun) -> SummaryResult:
+    """The summary and its metrics copied to the host."""
     pt = run.finalize["pair_table"]
     after = run.finalize["after"]
     keep = run.finalize["keep"]

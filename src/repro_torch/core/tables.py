@@ -27,6 +27,7 @@ from repro_torch.core import costs
 from repro_torch.core.types import PairTable, SummaryState
 from repro_torch.kernels import ops
 from repro_torch.utils import boundaries_from_keys, rank_in_segment
+from repro_torch.utils.spans import span
 
 F32 = torch.float32
 
@@ -164,11 +165,14 @@ def build_group_tables(pt: PairTable, state: SummaryState, groups: torch.Tensor,
 
     ``scal = (cbar, log2v)`` feeds the pair-cost kernel of the exact totals.
     """
-    nbr_id, nbr_cnt, self_cnt = build_neighbor_tables(pt, num_nodes, max_neighbors)
-    pi = costs.pair_pi(pt, state.size)
-    t_all = costs.supernode_total_costs(pt, pi, scal, num_nodes, backend=backend)
-    return assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, state.size,
-                                 groups, union_size, num_nodes)
+    with span("ssumm.neighbor_tables"):
+        nbr_id, nbr_cnt, self_cnt = build_neighbor_tables(pt, num_nodes, max_neighbors)
+    with span("ssumm.total_costs"):
+        pi = costs.pair_pi(pt, state.size)
+        t_all = costs.supernode_total_costs(pt, pi, scal, num_nodes, backend=backend)
+    with span("ssumm.assemble_tables"):
+        return assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, state.size,
+                                     groups, union_size, num_nodes)
 
 
 def assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, sizes,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.io import is_canonical
+from repro_torch.utils.spans import span
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -157,19 +158,23 @@ def make_graph(src, dst, num_nodes: int,
     """Canonicalize an edge list (undirected, dedup, no self-loops, src<dst)
     on the host and place it on ``device``. An edge list canonical already
     (a graph cache's) is taken as it is, without the sort."""
-    src = np.asarray(src, dtype=np.int64)
-    dst = np.asarray(dst, dtype=np.int64)
-    if is_canonical(src, dst):
-        lo, hi = src, dst
-    else:
-        lo = np.minimum(src, dst)
-        hi = np.maximum(src, dst)
-        keep = lo != hi
-        lo, hi = lo[keep], hi[keep]
-        _, idx = np.unique(lo * int(num_nodes) + hi, return_index=True)
-        lo, hi = lo[idx], hi[idx]
-    dev = resolve_device(device)
-    g = Graph(src=torch.as_tensor(lo, device=dev), dst=torch.as_tensor(hi, device=dev))
+    with span("ssumm.make_graph"):
+        with span("ssumm.canonical_check"):
+            src = np.asarray(src, dtype=np.int64)
+            dst = np.asarray(dst, dtype=np.int64)
+            if is_canonical(src, dst):
+                lo, hi = src, dst
+            else:
+                lo = np.minimum(src, dst)
+                hi = np.maximum(src, dst)
+                keep = lo != hi
+                lo, hi = lo[keep], hi[keep]
+                _, idx = np.unique(lo * int(num_nodes) + hi, return_index=True)
+                lo, hi = lo[idx], hi[idx]
+        dev = resolve_device(device)
+        with span("ssumm.to_device"):
+            g = Graph(src=torch.as_tensor(lo, device=dev),
+                      dst=torch.as_tensor(hi, device=dev))
     return g, int(num_nodes)
 
 

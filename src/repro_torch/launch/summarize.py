@@ -45,7 +45,9 @@ the same summary bit for bit. The JSON has the reference's distributed keys
 (``mode``, ``size_bits_before_sparsify``, ``superedges_dropped``,
 ``feed_*``, ``process_index``, ``process_count``, ``sparsify_wall_s``, ...)
 and the port's (``history``, ``bucket_cap``, ``bucket_bytes``,
-``kernel_launches``). Rank 0 ingests a new file and writes the
+``kernel_launches``). ``sparsify_wall_s`` is the host wall of the final
+sparsification and ends with no device sync of its own: on the card it
+times the enqueue of that path, not its device work. Rank 0 ingests a new file and writes the
 checkpoints, so every process must see the same file system for the cache
 and the checkpoint directory. A resume may run on another number of ranks:
 the state is loaded whole on every rank and the shards are fed again at
