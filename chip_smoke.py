@@ -21,6 +21,11 @@ card and CPU runs. Phases, one line each or a few:
      CPU copies; the dense case's time; argmax tie rules;
   3. pair_cost (Triton) against plain: E in {7, 1025, 5000} and the real
      pair table;
+  3b. group_tables (CUDA) against plain on the card, bit for bit: test
+     shapes (a dead group, the U cut, C·D at 2,048, C·U not a multiple of
+     4), and the tables of both benchmark stand-ins (skitter, livejournal)
+     at round 1 and round 16 (the most dead groups), on the local path and
+     the compact path; timed beside the plain chain and its bytes bound;
   4. the main path at full size: budget met, metrics finite, each kernel
      launched once per round; then one round replayed stage by stage, and
      once under torch.profiler, to show where its time goes;
@@ -306,6 +311,8 @@ SERVE_SLOTS = 64
 # phase 6's edge list, the file of phases 7-11: the skitter stand-in at a
 # quarter of its size (the full size's write and parse took 79.4 s)
 EDGE_LIST_SCALE = 0.25
+# phase 3b: the late round whose tables are held against the plain version
+LATE_ROUND = 16
 SERVE_RANKS_LAYERS = 8  # phase 21a: 8 of qwen2.5-14B's 48 layers (the time limit)
 # phase 21b-g: the split decode step against the unsplit on the card, of the
 # largest |logit| (float32, TF32 off; the parts add in another order)
@@ -1014,6 +1021,140 @@ def run(tmp: str) -> int:
             library_ms=None)
 
     smoke.phase("3 pair_cost", phase_pair_cost)
+
+    # ---- 3b. group_tables kernel against plain -----------------------------
+    def phase_group_tables():
+        from repro_torch.core.engine import theta_schedule_host
+        from repro_torch.kernels import group_tables as tables_lib
+        from repro_torch.launch.costs import group_tables_bytes
+
+        sys.path.insert(0, ROOT)
+        from bench import graphs as bench_graphs
+
+        lib = tables_lib._bind()
+        if lib.group_tables_max_entries() != tables_lib.MAX_ENTRIES:
+            raise AssertionError(f"entries a block: the CUDA source says "
+                                 f"{lib.group_tables_max_entries()}, the launcher "
+                                 f"{tables_lib.MAX_ENTRIES}")
+        for c, d, u in ((32, 64, 128), (8, 6, 32), (7, 5, 9), (64, 32, 256)):
+            if lib.group_tables_smem_bytes(c, d, u) != tables_lib.smem_bytes(c, d, u):
+                raise AssertionError(f"shared memory of (C={c}, D={d}, U={u}): the CUDA "
+                                     f"source says {lib.group_tables_smem_bytes(c, d, u)} "
+                                     f"B, the launcher {tables_lib.smem_bytes(c, d, u)} B")
+
+        def seam_args(build):
+            """``build()``'s result and the arguments it handed
+            ``ops.assemble_tables``."""
+            seen, real = [], ops.assemble_tables
+
+            def spy(*args, **kwargs):
+                seen.append(args)
+                return real(*args, **kwargs)
+
+            ops.assemble_tables = spy
+            try:
+                out = build()
+            finally:
+                ops.assemble_tables = real
+            return out, seen[-1]
+
+        def same(args, tag, timed):
+            got = tables_lib.group_tables_cuda(*args)
+            want = ref.group_tables_ref(*args)
+            for name, x, y in zip(("m", "n_u", "cidx", "w"), got, want):
+                if x.dtype != y.dtype or x.shape != y.shape or not x.is_contiguous() \
+                        or not torch.equal(x, y):
+                    raise AssertionError(f"group_tables {tag}: {name} differs from the "
+                                         f"plain version ({int((x != y).sum())} entries)")
+            rows, alive, u, v = args[2], args[4], args[6], args[7]
+            g, c = rows.shape
+            live = ((args[0][rows] < v) & alive[..., None]).any(-1).any(-1)
+            line = (f"group_tables {tag}: G={g} C={c} U={u}, {int((~live).sum())} groups "
+                    f"with no live entry, {int((got[2] < u).sum())} members with a column: "
+                    f"m, n_u, cidx, w equal to the plain version bit for bit")
+            if timed:
+                ms = time_cuda(torch, lambda: tables_lib.group_tables_cuda(*args))
+                prof_ms = profiled_ms(torch, lambda: tables_lib.group_tables_cuda(*args),
+                                      "group_tables_kernel")
+                plain_ms = time_cuda(torch, lambda: ref.group_tables_ref(*args),
+                                     launches=1, batches=3, warmup=1)
+                bound = group_tables_bytes(g, c, args[0].shape[-1], u) / HBM_BYTES_PER_S * 1e3
+                line += (f"; kernel {ms:.4f} ms (profiler {fmt_ms(prof_ms)} ms), plain "
+                         f"{plain_ms:.2f} ms, bytes bound {bound:.4f} ms ({100 * bound / ms:.1f}%)")
+                timings.append((tag, ms, plain_ms, bound))
+            log(line)
+
+        def compact_args(graph, state, cfg, perms, v):
+            """Rank 0 of 4 on the compact grouping; a few owned live members
+            get no row (-1), as members of another rank's rows would."""
+            pt = costs.build_pair_table(graph.src, graph.dst, state)
+            groups = shingles.build_groups(graph.src, graph.dst, state, perms, cfg.group_size)
+            c = groups.shape[1]
+            my_groups = groups.reshape(-1, 4, c)[:, 0]
+            flat = my_groups.reshape(-1)
+            slot_of = torch.full((v + 1,), -1, dtype=torch.int64, device=dev).scatter_(
+                0, torch.where(flat >= 0, flat, v), torch.arange(flat.numel(), device=dev))[:-1]
+            cut = my_groups[::7, 0]
+            slot_of[cut[cut >= 0]] = -1
+            nbr = tables.build_neighbor_tables_compact(pt.lo, pt.hi, pt.cnt, pt.valid, slot_of,
+                                                       flat.numel(), v, cfg.max_neighbors)
+            t_all = torch.zeros(flat.numel(), dtype=torch.float32, device=dev)
+            return seam_args(lambda: tables.assemble_group_tables(
+                *nbr, t_all, state.size, my_groups, cfg.union_size, v,
+                row_of_member=slot_of))[1]
+
+        # small shapes: a dead group, the U cut, C·D at a block's 2,048
+        # entries, C·U not a multiple of 4; rows of distinct ids
+        timings: list = []
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for g, c, d, u, v in ((3, 8, 6, 32, 240), (5, 32, 64, 12, 5000), (4, 7, 5, 9, 60)):
+            r = min(200, v)
+            nbr_id = torch.stack([torch.randperm(r + 1, generator=gen, device=dev)[:d]
+                                  for _ in range(r)])
+            nbr_id = torch.where(nbr_id < r, nbr_id * (v // r), v)
+            nbr_cnt = torch.randint(1, 6, (r, d), generator=gen, device=dev).float()
+            rows = torch.randint(0, r, (g, c), generator=gen, device=dev)
+            alive = torch.rand((g, c), generator=gen, device=dev) < 0.8
+            alive[0] = False
+            sizes = torch.randint(1, 4, (v,), generator=gen, device=dev)
+            same((nbr_id, nbr_cnt, rows, rows * (v // r), alive, sizes, u, v),
+                 f"test shape (G={g}, C={c}, D={d}, U={u}, V={v})", timed=False)
+
+        for cell in ("skitter", "livejournal"):
+            with open(os.path.join(ROOT, "bench", "configs", f"{cell}.json")) as f:
+                conf = json.load(f)
+            lo, hi, v = bench_graphs.generate(conf, seed=3_000_000_017, device=dev)
+            graph, _ = make_graph(lo.cpu().numpy(), hi.cpu().numpy(), v, dev)
+            del lo, hi
+            cfg = SummaryConfig(T=20, k_frac=0.3, **{k: conf["summary"][k] for k in (
+                "group_size", "max_neighbors", "union_size")})
+            perms = shingles.TorchPermutations(1, dev)
+            state = init_state(v, dev)
+            for t in range(1, LATE_ROUND + 1):
+                theta = costs.f32_scalar(theta_schedule_host(t, cfg.T), dev)
+                if t not in (1, LATE_ROUND):
+                    state, _ = merge.merge_iteration(graph.src, graph.dst, state, cfg, theta,
+                                                     perms)
+                    continue
+                same(compact_args(graph, state, cfg, perms, v),
+                     f"{cell} round {t}, compact path (rank 0 of 4)", timed=False)
+                (state, _), args = seam_args(lambda: merge.merge_iteration(
+                    graph.src, graph.dst, state, cfg, theta, perms))
+                same(args, f"{cell} round {t}", timed=True)
+                del args
+            del graph, state
+            torch.cuda.empty_cache()
+        kernel_ms = [x[1] for x in timings if x[0].endswith("round 1")]
+        smoke.kernels["group_tables"] = dict(
+            name="group_tables", route="cuda",
+            source="src/repro_torch/kernels/csrc/group_tables.cu",
+            replaces="no TPU kernel: src/repro/core/tables.py::assemble_group_tables",
+            max_abs_err=0.0, ms=kernel_ms[0],
+            plain_ms=[x[2] for x in timings if x[0].endswith("round 1")][0],
+            bound_ms=[x[3] for x in timings if x[0].endswith("round 1")][0],
+            bound_by="bytes", library_ms=None)
+
+    smoke.phase("3b group_tables", phase_group_tables)
     ctx.pop("gt", None)
     torch.cuda.empty_cache()
 
@@ -1034,7 +1175,7 @@ def run(tmp: str) -> int:
         ctx["res_arrays"] = {k: getattr(res, k).copy()
                              for k in ("node2super", "super_size", "edge_w")}
         ctx["res_ints"] = [[h[k] for k in INT_STATS] for h in res.history]
-        for k in ("merge_gain", "pair_cost"):
+        for k in ("merge_gain", "pair_cost", "group_tables"):
             if k in smoke.kernels:
                 smoke.kernels[k]["launches"] = counts[k]
         k_bits = cfg.target_bits(res.input_size_bits)
@@ -1051,7 +1192,8 @@ def run(tmp: str) -> int:
         for k in ("size_bits", "re1", "re2", "mdl_cost"):
             if not np.isfinite(getattr(res, k)):
                 raise AssertionError(f"{k} is not finite")
-        if counts != {"merge_gain": res.iterations_run, "pair_cost": res.iterations_run,
+        n = res.iterations_run
+        if counts != {"merge_gain": n, "pair_cost": n, "group_tables": n,
                       "segment_sum": 0, "ordered_sum": 0}:
             raise AssertionError(f"launch counts {counts} != one per round "
                                  f"({res.iterations_run} rounds)")
@@ -1308,7 +1450,7 @@ def run(tmp: str) -> int:
         if out["requests"] != SERVE_REQUESTS or set(out["queries"]) != set(ALL_KINDS.split(",")):
             raise AssertionError(f"served {out['requests']} requests of {out['queries']}")
         rounds = out["iterations"]
-        if counts["merge_gain"] != rounds or counts["pair_cost"] != rounds:
+        if any(counts[k] != rounds for k in ("merge_gain", "pair_cost", "group_tables")):
             raise AssertionError(f"launch counts {counts} != one per round ({rounds} rounds)")
         for k in ("segment_sum", "ordered_sum"):
             if counts[k] == 0:
@@ -1759,9 +1901,10 @@ def run(tmp: str) -> int:
         if any(omegas[r - 1] <= omegas[r - 2] for r in rose) or not sizes[-1] < sizes[0]:
             errors.append("the size rose in a round where ω_max did not, or did not shrink")
         n = out["iterations"]
-        if counts != {"merge_gain": n, "pair_cost": n, "segment_sum": 0, "ordered_sum": 0}:
+        if counts != {"merge_gain": n, "pair_cost": n, "group_tables": n, "segment_sum": 0,
+                      "ordered_sum": 0}:
             errors.append(f"launch counts {counts} != one of each per round ({n} rounds)")
-        for k in ("merge_gain", "pair_cost"):
+        for k in ("merge_gain", "pair_cost", "group_tables"):
             smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
                 "edge-sharded"] = counts[k]
 
@@ -2070,7 +2213,8 @@ def run(tmp: str) -> int:
             errors.append(f"the bootstrapped launcher differs from phase 9: {differ}, "
                           f"digests equal {dig == dig9}")
         n = out["iterations"]
-        if counts != {"merge_gain": n, "pair_cost": n, "segment_sum": 0, "ordered_sum": 0}:
+        if counts != {"merge_gain": n, "pair_cost": n, "group_tables": n, "segment_sum": 0,
+                      "ordered_sum": 0}:
             errors.append(f"launch counts {counts} != one of each per round ({n} rounds)")
         for k in counts:
             smoke.kernels.setdefault(k, {}).setdefault("launches_by_path", {})[
@@ -4073,7 +4217,7 @@ def run(tmp: str) -> int:
     if smoke.failed:
         log(f"chip_smoke: failed phases: {smoke.failed}")
         return 1
-    names = ("merge_gain", "pair_cost", "segment_sum", "ordered_sum")
+    names = ("merge_gain", "pair_cost", "group_tables", "segment_sum", "ordered_sum")
     for k in names:
         if "launches" not in smoke.kernels.get(k, {}):
             log(f"chip_smoke: no numbers for {k}")

@@ -410,7 +410,8 @@ class DistributedBackend:
             backend=cfg.kernel_backend)
         mark("total costs (pair_cost)")
         gt = tables.assemble_group_tables(*nbr, t_all, state.size, my_groups,
-                                          cfg.union_size, v, row_of_member=slot_of)
+                                          cfg.union_size, v, row_of_member=slot_of,
+                                          backend=cfg.kernel_backend)
         mark("group tables")
         return dict(gt=gt, scal=scal, s_count=s_count, glo=glo, ghi=ghi, gcnt=gcnt,
                     gvalid=gvalid, overflow=overflow, owner_of=owner_of, slot_of=slot_of,

@@ -14,6 +14,9 @@ constant under a hypothetical merge.
 The reference's ``.at[...].set/min/add(mode="drop")`` scatters become
 ``scatter_``, ``scatter_reduce_`` (``amin``, ``include_self=True``) and
 ``index_add_`` onto a tensor with one sentinel slot that is then sliced off.
+The union-space part of the assembly is a hand kernel
+(``kernels/csrc/group_tables.cu``), its plain version
+``kernels/ref.py::group_tables_ref``.
 """
 
 from __future__ import annotations
@@ -172,23 +175,23 @@ def build_group_tables(pt: PairTable, state: SummaryState, groups: torch.Tensor,
         t_all = costs.supernode_total_costs(pt, pi, scal, num_nodes, backend=backend)
     with span("ssumm.assemble_tables"):
         return assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, state.size,
-                                     groups, union_size, num_nodes)
+                                     groups, union_size, num_nodes, backend=backend)
 
 
 def assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, sizes,
                           groups: torch.Tensor, union_size: int,
-                          num_nodes: int, *, row_of_member: torch.Tensor | None = None
-                          ) -> GroupTables:
+                          num_nodes: int, *, row_of_member: torch.Tensor | None = None,
+                          backend: str | None = None) -> GroupTables:
     """Union-space assembly, shared by the ``[V, D]`` tables (row = supernode
     id, ``row_of_member`` None) and the compact ``[n_rows, D]`` tables of one
     rank (``row_of_member``: global id → table row, -1 = not a row here;
-    members without a row count as dead)."""
+    members without a row count as dead).
+
+    The per-member prologue (``n``, ``s``, ``t``, each member's row and
+    liveness) is ``[G, C]`` work here; ``m``, ``n_u``, ``cidx`` and ``w`` come
+    from the group-table kernel (``ops.assemble_tables``)."""
     v = num_nodes
-    g_cnt, c = groups.shape
-    u = union_size
-    d = nbr_id.shape[-1]
-    dev = groups.device
-    zero = torch.zeros((), dtype=F32, device=dev)
+    zero = torch.zeros((), dtype=F32, device=groups.device)
 
     members = groups
     mvalid = members >= 0
@@ -205,43 +208,6 @@ def assemble_group_tables(nbr_id, nbr_cnt, self_cnt, t_all, sizes,
     s = torch.where(alive, self_cnt[rows], zero)
     t = torch.where(alive, t_all[rows], zero)
 
-    tab_id = torch.where(alive[..., None], nbr_id[rows], v)  # [G, C, D]
-    tab_cnt = torch.where(alive[..., None], nbr_cnt[rows], zero)
-
-    # ---- union space: batched sort along the last axis ------------------
-    flat_id = tab_id.reshape(g_cnt, c * d)
-    flat_cnt = tab_cnt.reshape(g_cnt, c * d)
-    # Sorted by id alone: a stable sort keeps the member (row) order inside
-    # equal ids, as the reference's sort does.
-    ids_s, perm = torch.sort(flat_id, dim=1, stable=True)
-    row_s = perm // d
-    cnt_s = torch.gather(flat_cnt, 1, perm)
-    first = torch.ones_like(ids_s, dtype=torch.bool)
-    first[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
-    col = torch.cumsum(first.to(torch.int64), dim=1) - 1  # [G, C*D]
-    entry_ok = (ids_s < v) & (col < u)
-
-    col_safe = torch.where(entry_ok, col, u)  # sentinel column u
-    uid = torch.full((g_cnt, u + 1), v, dtype=torch.int64, device=dev)
-    uid = uid.scatter_reduce_(1, col_safe, torch.where(entry_ok, ids_s, v),
-                              reduce="amin", include_self=True)[:, :u]
-    m = torch.zeros(g_cnt, c * (u + 1), dtype=F32, device=dev)
-    m.scatter_add_(1, row_s * (u + 1) + col_safe, torch.where(entry_ok, cnt_s, zero))
-    m = m.reshape(g_cnt, c, u + 1)[:, :, :u].contiguous()
-
-    n_u = torch.where(uid < v, sizes[torch.clamp(uid, max=v - 1)], 0).to(F32)
-
-    # member's own column in union space (U = absent); argmax takes the first
-    eq = (uid[:, None, :] == midx[:, :, None]) & alive[:, :, None]  # [G,C,U]
-    found = eq.any(dim=-1)
-    cidx = torch.where(found, torch.argmax(eq.to(torch.uint8), dim=-1), u)
-    cidx = cidx.to(torch.int32)
-
-    # within-group pair counts from either row's table (max recovers entries
-    # truncated out of one of the two rows)
-    cj = torch.clamp(cidx, max=u - 1).to(torch.int64)[:, None, :].expand(g_cnt, c, c)
-    w1 = torch.gather(m, 2, cj)
-    w1 = torch.where((cidx < u)[:, None, :], w1, zero)
-    w = torch.maximum(w1, w1.transpose(1, 2)).contiguous()
-
+    m, n_u, cidx, w = ops.assemble_tables(nbr_id, nbr_cnt, rows, midx, alive, sizes,
+                                          union_size, v, backend=backend)
     return GroupTables(m=m, n=n, s=s, t=t, n_u=n_u, cidx=cidx, w=w, members=members)

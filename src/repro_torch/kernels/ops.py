@@ -6,6 +6,7 @@ device and ``SummaryConfig.kernel_backend``:
   * ``None``     — the hand kernel for CUDA tensors
     (:func:`~repro_torch.kernels.merge_gain.merge_gain_cuda`,
     :func:`~repro_torch.kernels.entropy_bits.pair_cost_triton`,
+    :func:`~repro_torch.kernels.group_tables.group_tables_cuda`,
     :func:`~repro_torch.kernels.segment_sum.segment_sum_cuda`,
     :func:`~repro_torch.kernels.segment_sum.ordered_sum_cuda`), the plain
     version (:mod:`repro_torch.kernels.ref`) for CPU tensors;
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.entropy_bits import pair_cost_triton
+from repro_torch.kernels.group_tables import group_tables_cuda
 from repro_torch.kernels.merge_gain import merge_gain_cuda
 from repro_torch.kernels.segment_sum import ordered_sum_cuda, segment_sum_cuda
 
@@ -83,6 +85,18 @@ def pair_cost(cnt, pi, scal, *, backend: str | None = None):
     return _plain("pair_cost", lambda *a: ref.pair_cost_ref(*a, scal[0], scal[1]), cnt, pi)
 
 
+def assemble_tables(nbr_id, nbr_cnt, rows, midx, alive, sizes, union_size: int,
+                    num_nodes: int, *, backend: str | None = None):
+    """Union-space group tables ``(m, n_u, cidx, w)`` from the members' top-D
+    neighbor rows (``rows``: each member's row, ``midx``: its id, ``alive``:
+    whether it counts); ``sizes`` the supernode sizes."""
+    if _use_kernel(rows, backend):
+        return group_tables_cuda(nbr_id, nbr_cnt, rows, midx, alive, sizes, union_size,
+                                 num_nodes)
+    return _plain("group_tables", ref.group_tables_ref, nbr_id, nbr_cnt, rows, midx,
+                  alive, sizes, union_size, num_nodes)
+
+
 def segment_sum(indptr, vals, long=None, *, backend: str | None = None):
     """Per-segment sums in storage order, float64[len(indptr) - 1]: the query
     engine's row reduction over the block CSR. ``long`` is
@@ -103,7 +117,8 @@ def ordered_sum(x, segment: int, *, backend: str | None = None):
 
 
 _KERNELS = {"merge_gain": merge_gain_cuda, "pair_cost": pair_cost_triton,
-            "segment_sum": segment_sum_cuda, "ordered_sum": ordered_sum_cuda}
+            "group_tables": group_tables_cuda, "segment_sum": segment_sum_cuda,
+            "ordered_sum": ordered_sum_cuda}
 
 
 def launch_counts() -> dict[str, int]:

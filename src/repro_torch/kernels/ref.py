@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the hand kernels.
 
 Port of ``repro/kernels/ref.py`` (``entropy_bits_ref``, ``pair_cost_ref``,
-``merge_gain_ref``), operation for operation in the reference's order, and
-``segment_sum_ref`` and ``ordered_sum_ref``, the query engine's fixed-order
-sums. They are what a CPU tensor runs (:mod:`repro_torch.kernels.ops`) and
+``merge_gain_ref``), operation for operation in the reference's order;
+``group_tables_ref``, the union-space chain of
+``repro/core/tables.py::assemble_group_tables``; and ``segment_sum_ref`` and
+``ordered_sum_ref``, the query engine's fixed-order sums. They are what a CPU tensor runs (:mod:`repro_torch.kernels.ops`) and
 what the CUDA and Triton kernels are held against on the card.
 
 The sums over U are added in the reference's XLA:CPU order on every
@@ -104,6 +105,67 @@ def merge_gain_ref(
                       torch.full((), float("-inf"), device=m.device))
     red = torch.where(valid, red, torch.zeros((), device=m.device))
     return rel, red
+
+
+def group_tables_ref(nbr_id: torch.Tensor, nbr_cnt: torch.Tensor, rows: torch.Tensor,
+                     midx: torch.Tensor, alive: torch.Tensor, sizes: torch.Tensor,
+                     union_size: int, num_nodes: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Union-space tables of every group: ``(m float32[G, C, U], n_u
+    float32[G, U], cidx int32[G, C], w float32[G, C, C])``.
+
+    ``rows`` is each member's row of ``nbr_id``/``nbr_cnt``, ``midx`` its
+    supernode id, ``alive`` whether it counts. The reference's
+    ``.at[...].set/min/add(mode="drop")`` scatters become ``scatter_reduce_``
+    (``amin``, ``include_self=True``) and ``scatter_add_`` onto a tensor with
+    one sentinel column that is then sliced off.
+    """
+    v = num_nodes
+    g_cnt, c = rows.shape
+    u = union_size
+    d = nbr_id.shape[-1]
+    dev = rows.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    tab_id = torch.where(alive[..., None], nbr_id[rows], v)  # [G, C, D]
+    tab_cnt = torch.where(alive[..., None], nbr_cnt[rows], zero)
+
+    # ---- union space: batched sort along the last axis ------------------
+    flat_id = tab_id.reshape(g_cnt, c * d)
+    flat_cnt = tab_cnt.reshape(g_cnt, c * d)
+    # Sorted by id alone: a stable sort keeps the member (row) order inside
+    # equal ids, as the reference's sort does.
+    ids_s, perm = torch.sort(flat_id, dim=1, stable=True)
+    row_s = perm // d
+    cnt_s = torch.gather(flat_cnt, 1, perm)
+    first = torch.ones_like(ids_s, dtype=torch.bool)
+    first[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
+    col = torch.cumsum(first.to(torch.int64), dim=1) - 1  # [G, C*D]
+    entry_ok = (ids_s < v) & (col < u)
+
+    col_safe = torch.where(entry_ok, col, u)  # sentinel column u
+    uid = torch.full((g_cnt, u + 1), v, dtype=torch.int64, device=dev)
+    uid = uid.scatter_reduce_(1, col_safe, torch.where(entry_ok, ids_s, v),
+                              reduce="amin", include_self=True)[:, :u]
+    m = torch.zeros(g_cnt, c * (u + 1), dtype=torch.float32, device=dev)
+    m.scatter_add_(1, row_s * (u + 1) + col_safe, torch.where(entry_ok, cnt_s, zero))
+    m = m.reshape(g_cnt, c, u + 1)[:, :, :u].contiguous()
+
+    n_u = torch.where(uid < v, sizes[torch.clamp(uid, max=v - 1)], 0).to(torch.float32)
+
+    # member's own column in union space (U = absent); argmax takes the first
+    eq = (uid[:, None, :] == midx[:, :, None]) & alive[:, :, None]  # [G,C,U]
+    found = eq.any(dim=-1)
+    cidx = torch.where(found, torch.argmax(eq.to(torch.uint8), dim=-1), u)
+    cidx = cidx.to(torch.int32)
+
+    # within-group pair counts from either row's table (max recovers entries
+    # truncated out of one of the two rows)
+    cj = torch.clamp(cidx, max=u - 1).to(torch.int64)[:, None, :].expand(g_cnt, c, c)
+    w1 = torch.gather(m, 2, cj)
+    w1 = torch.where((cidx < u)[:, None, :], w1, zero)
+    w = torch.maximum(w1, w1.transpose(1, 2)).contiguous()
+    return m, n_u, cidx, w
 
 
 def segment_sum_ref(indptr: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

@@ -162,6 +162,14 @@ def pair_cost_bytes(e: int) -> float:
     return 12.0 * e
 
 
+def group_tables_bytes(g: int, c: int, d: int, u: int) -> float:
+    """The members' top-``D`` rows read once (int64 ids, float32 counts),
+    their row, id (int64) and liveness (bool), each column's size (int64),
+    and ``m`` [G,C,U], ``w`` [G,C,C], ``n_u`` [G,U] (float32) and ``cidx``
+    [G,C] (int32) written once."""
+    return float(g) * (12 * c * d + 17 * c + 8 * u + 4 * (c * u + c * c + u + c))
+
+
 def segment_sum_bytes(n_seg: int, nnz: int, n_long: int = 0) -> float:
     """``indptr`` (int64), the float64 values, the float64 sums and the long
     rows' list."""
@@ -177,12 +185,16 @@ def kernel_work(name: str, args) -> tuple[float, float]:
     """``(FLOPs, bytes)`` of one call of hand kernel ``name`` on ``args``,
     as ``kernels/ops.py`` passes them. The merge gain's FLOPs are its scoring
     arithmetic; the others' are float adds (the sums) or elementwise (the
-    pair cost, uncounted as every elementwise op is)."""
+    pair cost, uncounted as every elementwise op is); the group tables sort
+    and move integers and add each count once onto zero (none counted)."""
     if name == "merge_gain":
         g, c, u = args[0].shape
         return merge_gain_flops(g, c, u), merge_gain_bytes(g, c, u)
     if name == "pair_cost":
         return 0.0, pair_cost_bytes(int(args[0].numel()))
+    if name == "group_tables":
+        g, c = args[2].shape
+        return 0.0, group_tables_bytes(g, c, args[0].shape[-1], int(args[6]))
     if name == "segment_sum":
         indptr, vals, long = args
         n_long = 0 if long is None else int(long.numel())

@@ -76,8 +76,8 @@ def test_launcher_distributed_prints_the_reference_keys(alone, world):
     assert res["feed_peak_staging_bytes"] == res["feed_shard_bytes"]
     assert res["feed_shard_rows"] == -(-res["E"] // world)
     assert res["relative_size"] <= 0.3 * (1 + 1e-6)
-    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "segment_sum": 0,
-                                      "ordered_sum": 0}
+    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "group_tables": 0,
+                                      "segment_sum": 0, "ordered_sum": 0}
     assert all(h["overflow"] == 0 for h in res["history"])
     # the partition of the run with no group, and its results
     want_digest, stats, run = alone

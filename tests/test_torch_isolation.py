@@ -245,8 +245,8 @@ def test_launcher_on_the_cpu_prints_the_reference_keys(capsys):
               "wall_s", "device", "kernel_launches"):
         assert k in res, k
     assert res["device"] == "cpu" and res["mode"] == "local"
-    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "segment_sum": 0,
-                                     "ordered_sum": 0}
+    assert res["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "group_tables": 0,
+                                     "segment_sum": 0, "ordered_sum": 0}
     assert res["relative_size"] <= 0.3 * (1 + 1e-6)
 
 

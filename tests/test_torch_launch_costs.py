@@ -188,6 +188,9 @@ def test_kernel_work_matches_the_bounds_formulas():
     assert costs.pair_cost_bytes(1000) == 12000
     assert costs.segment_sum_bytes(10, 100, 2) == 8 * 11 + 8 * 100 + 8 * 10 + 8 * 2
     assert costs.ordered_sum_bytes(9, 64) == 8 * 9 * 64 + 8 * 9
+    # ids, counts; rows, ids, liveness; column sizes; m, w, n_u, cidx: ~46 KB a group
+    assert costs.group_tables_bytes(65536, 32, 64, 128) == 65536 * (
+        32 * 64 * 12 + 32 * 17 + 128 * 8 + (32 * 128 + 32 * 32 + 128 + 32) * 4)
 
 
 def test_a_hand_kernels_call_counts_its_own_work():
@@ -216,6 +219,26 @@ def test_a_hand_kernels_call_counts_its_own_work():
     assert counter.flops == costs.merge_gain_flops(g, c, u)
     assert counter.bytes == costs.merge_gain_bytes(g, c, u) + costs.pair_cost_bytes(g * c * u)
     assert ops.COUNTER is None
+
+
+def test_the_group_table_kernels_call_counts_its_own_work():
+    """``ops.assemble_tables`` on CPU tensors under a counter: the plain
+    version's values, the kernel's analytic bytes and no FLOPs."""
+    g, c, d, u, v = 4, 8, 6, 16, 40
+    rng = np.random.default_rng(1)
+    nbr_id = torch.as_tensor(np.stack([rng.permutation(v + 1)[:d] for _ in range(v)]))
+    nbr_cnt = torch.as_tensor(rng.integers(1, 4, (v, d)).astype(np.float32))
+    midx = torch.as_tensor(rng.permutation(v)[:g * c].reshape(g, c))
+    alive = torch.as_tensor(rng.random((g, c)) < 0.8)
+    sizes = torch.ones(v, dtype=torch.int64)
+    args = (nbr_id, nbr_cnt, midx, midx, alive, sizes, u, v)
+    want = ops.assemble_tables(*args)
+    counter = costs.WorkCounter("cpu")
+    with counter:
+        got = ops.assemble_tables(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert counter.kernel_calls == {"group_tables": 1}
+    assert counter.flops == 0.0 and counter.bytes == costs.group_tables_bytes(g, c, d, u)
 
 
 def test_the_peak_follows_live_storages():

@@ -229,7 +229,7 @@ def test_a_counted_ssumm_round_issues_a_real_rounds_collectives():
         rec = trace(backend.step, args, log)
     traced = [(x.op, x.shape, x.dtype) for x in rec["_calls"]]
     assert real and traced == real
-    assert rec["kernel_calls"] == {"merge_gain": 1, "pair_cost": 1}
+    assert rec["kernel_calls"] == {"merge_gain": 1, "pair_cost": 1, "group_tables": 1}
     assert rec["data_dependent_ops"] == 0
 
 

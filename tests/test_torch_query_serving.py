@@ -189,8 +189,8 @@ def test_driver_smoke(capsys):
     assert rec["requests"] == 40 and sum(rec["queries"].values()) == 40
     assert set(rec["queries"]) == set(KIND_NAMES)
     assert rec["qps"] > 0 and 0 < rec["p50_latency_s"] <= rec["p99_latency_s"]
-    assert rec["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "segment_sum": 0,
-                                     "ordered_sum": 0}
+    assert rec["kernel_launches"] == {"merge_gain": 0, "pair_cost": 0, "group_tables": 0,
+                                     "segment_sum": 0, "ordered_sum": 0}
     assert 1 <= rec["pagerank_iterations"] <= 50 and rec["triangle_wedges"] >= 0
     capsys.readouterr()
     again = query_serve.main(args)  # a second run: the same requests, the same bits
